@@ -1,0 +1,347 @@
+"""Fused dynamic-policy (SR / SERPT / conditional-RANK) sojourn evaluator.
+
+The counterpart of ``repro/kernels/sojourn_eval/dynamic.py``.  Each
+outcome combination (exact enumeration) or sample (streamed Monte Carlo)
+is simulated on ``n_servers = W`` homogeneous servers with preemption at
+stage boundaries: every step pops the running job with the earliest
+``busy_until`` and seats the queued job with the minimum conditional
+index ``idx[j, stage_j]`` on the freed server, ties to the lowest job
+position.  The weighted means of the successful and of all jobs'
+completion times are Eqs. (7)-(9).
+
+* ``dynamic_sojourn_enum`` / ``dynamic_sojourn_mc`` — wrappers of the
+  CUDA kernel in ``csrc/sojourn_dynamic.cu`` (design note there), which
+  replace the TPU kernels of the same names.  A CUDA tensor launches the
+  kernel or raises; a CPU tensor runs the plain version.
+* ``dynamic_sojourn_enum_torch`` / ``dynamic_sojourn_mc_torch`` — the
+  plain versions: the identical state machine with the job axis
+  vectorized (:func:`_sim_tile_torch`, the counterpart of
+  ``_sim_tile_xla``), over tiles of the index range.
+* :func:`sojourn_eval_dynamic` — the public op on NumPy workload arrays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.sojourn_eval import kernel as K
+from repro_torch.kernels.sojourn_eval import rng
+from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
+from repro_torch.obs import profiling
+
+__all__ = [
+    "MAX_JOBS",
+    "launches",
+    "sojourn_eval_dynamic",
+    "dynamic_kernel_args",
+    "dynamic_sojourn_enum",
+    "dynamic_sojourn_mc",
+    "dynamic_sojourn_enum_torch",
+    "dynamic_sojourn_mc_torch",
+]
+
+#: Largest job count the kernel holds in registers (its NMAX templates).
+MAX_JOBS = 64
+#: Combination indices per tile of the plain versions.
+PLAIN_TILE = 1 << 15
+
+#: Kernel launches per wrapper since the last reset (set to 0 to reset).
+launches = {"dynamic_sojourn_enum": 0, "dynamic_sojourn_mc": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint
+_SIGNATURES = {
+    "dynamic_enum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P, _P, _P],
+    "dynamic_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _I, _I, _P, _P, _P],
+}
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: lockstep simulation with the job axis vectorized
+# ---------------------------------------------------------------------------
+
+
+def _sim_tile_torch(s, succ, idx_table, stage_durs, *, total_stages, n_servers=1):
+    """Lockstep W-server simulation of one tile, job axis vectorized.
+
+    ``s`` is the (T, N) decoded stop-stage matrix (mixed radix or the
+    Threefry stream).  Returns per-lane ``(tot, tsum, cnt)``: summed
+    successful completion times, summed completion times, successes.
+    ``argmin`` keeps the first minimum, as the kernels' strict ``<``
+    running minimum does.
+    """
+    tile, n = s.shape
+    m = idx_table.shape[1]
+    dev, dtype = stage_durs.device, stage_durs.dtype
+    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+    job_ids = torch.arange(n, device=dev)[None, :]
+    w_srv = min(n_servers, n)
+
+    def tables(stage):
+        st = stage.clamp(max=m - 1)
+        ok = stage < m
+        idx = torch.where(ok, idx_table[job_ids, st], inf)
+        dur = torch.where(ok, stage_durs[job_ids, st], 0.0)
+        return idx, dur
+
+    def dispatch_one(stage, busy, nbusy, clock):
+        idx, dur = tables(stage)
+        queued = (busy == inf) & (stage <= s)
+        idxq = torch.where(queued, idx, inf)
+        j = torch.argmin(idxq, dim=1)  # first minimum: ties by position
+        can = (nbusy < w_srv) & torch.isfinite(idxq.min(dim=1).values)
+        sel = (j[:, None] == job_ids) & can[:, None] & queued
+        busy = torch.where(sel, clock[:, None] + dur, busy)
+        return busy, nbusy + can.to(torch.int64)
+
+    zf = torch.zeros(tile, dtype=dtype, device=dev)
+    stage = torch.zeros((tile, n), dtype=torch.int64, device=dev)
+    busy = torch.full((tile, n), torch.inf, dtype=dtype, device=dev)
+    nbusy = torch.zeros(tile, dtype=torch.int64, device=dev)
+    for _ in range(w_srv):  # t=0: seat the W smallest-index jobs
+        busy, nbusy = dispatch_one(stage, busy, nbusy, zf)
+    clock, tot, tsum = zf, zf, zf
+    cnt = torch.zeros(tile, dtype=torch.int64, device=dev)
+    for _ in range(total_stages):
+        tmin = busy.min(dim=1).values
+        cj = torch.argmin(busy, dim=1)  # earliest finish; ties by position
+        has = torch.isfinite(tmin)  # all-idle lanes: no-op
+        clock = torch.where(has, tmin, clock)
+        sel = (cj[:, None] == job_ids) & has[:, None]
+        fin = sel & (stage == s)
+        fin_any = fin.any(dim=1)
+        fin_succ = (fin & succ).any(dim=1)
+        tot = tot + torch.where(fin_succ, clock, 0.0)
+        cnt = cnt + fin_succ.to(torch.int64)
+        tsum = tsum + torch.where(fin_any, clock, 0.0)
+        stage = stage + sel.to(torch.int64)
+        busy = torch.where(sel, inf, busy)
+        nbusy = nbusy - has.to(torch.int64)
+        busy, nbusy = dispatch_one(stage, busy, nbusy, clock)
+    return tot, tsum, cnt
+
+
+def _reduce_tile(s, radix, w, idx_tables, stage_durs, total_stages, n_servers,
+                 e_succ, e_all) -> None:
+    """Simulate one tile under every policy and add Eqs. (7)-(9) in place."""
+    n = s.shape[1]
+    succ = s == radix[None, :] - 1
+    for p in range(idx_tables.shape[0]):
+        tot, tsum, cnt = _sim_tile_torch(
+            s, succ, idx_tables[p], stage_durs,
+            total_stages=total_stages, n_servers=n_servers,
+        )
+        mean = torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)
+        e_succ[p] += w @ mean
+        e_all[p] += w @ (tsum / n)
+
+
+def dynamic_sojourn_enum_torch(probs, stage_durs, idx_tables, strides, radix,
+                               k_total, total_stages, n_servers=1):
+    """Plain version of :func:`dynamic_sojourn_enum` on any device."""
+    n = probs.shape[0]
+    dev = probs.device
+    strides = strides.to(torch.int64)
+    radix = radix.to(torch.int64)
+    job_ids = torch.arange(n, device=dev)[None, :]
+    e_succ = torch.zeros(idx_tables.shape[0], dtype=torch.float64, device=dev)
+    e_all = torch.zeros_like(e_succ)
+    for lo in range(0, k_total, PLAIN_TILE):
+        k = torch.arange(lo, min(lo + PLAIN_TILE, k_total), device=dev)
+        s = (k[:, None] // strides[None, :]) % radix[None, :]  # (T, N) decode
+        w = probs[job_ids, s].prod(dim=1)  # Eq. (8)
+        _reduce_tile(s, radix, w, idx_tables, stage_durs, total_stages, n_servers,
+                     e_succ, e_all)
+    return e_succ, e_all
+
+
+def dynamic_sojourn_mc_torch(cdf, stage_durs, idx_tables, radix, seed, n_samples,
+                             total_stages, n_servers=1):
+    """Plain version of :func:`dynamic_sojourn_mc` on any device."""
+    n = cdf.shape[0]
+    dev = cdf.device
+    key = rng.split_seed(seed)
+    radix = radix.to(torch.int64)
+    job_ids = torch.arange(n, device=dev)[None, :]
+    e_succ = torch.zeros(idx_tables.shape[0], dtype=torch.float64, device=dev)
+    e_all = torch.zeros_like(e_succ)
+    for lo in range(0, n_samples, PLAIN_TILE):
+        k = torch.arange(lo, min(lo + PLAIN_TILE, n_samples), device=dev)
+        bits, _ = rng.threefry2x32_torch(key, k[:, None].expand(-1, n), job_ids.expand(len(k), -1))
+        u = rng.uniform_from_bits(bits)
+        scnt = (u[:, :, None] >= cdf[None]).sum(dim=2)  # inverse-CDF count
+        s = torch.minimum(scnt, radix[None, :] - 1)
+        w = torch.full((len(k),), 1.0 / n_samples, dtype=torch.float64, device=dev)
+        _reduce_tile(s, radix, w, idx_tables, stage_durs, total_stages, n_servers,
+                     e_succ, e_all)
+    return e_succ, e_all
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_common(tab, stage_durs, idx_tables, radix, total_stages, n_servers):
+    p_pols, n, m = idx_tables.shape
+    dev = idx_tables.device
+    K.check_tensor("idx_tables", idx_tables, torch.float64, (p_pols, n, m), dev)
+    K.check_tensor("stage_durs", stage_durs, torch.float64, (n, m), dev)
+    K.check_tensor("probs/cdf", tab, torch.float64, (n, m), dev)
+    K.check_tensor("radix", radix, torch.int32, (n,), dev)
+    if n > MAX_JOBS:
+        raise ValueError(f"the dynamic kernel holds at most {MAX_JOBS} jobs; got {n}")
+    if n_servers < 1:
+        raise ValueError(f"n_servers must be >= 1; got {n_servers}")
+    if total_stages < 0:
+        raise ValueError(f"total_stages must be >= 0; got {total_stages}")
+    return p_pols, n, m, dev
+
+
+def dynamic_sojourn_enum(
+    probs: torch.Tensor,  # (N, M) float64 padded stop probabilities
+    stage_durs: torch.Tensor,  # (N, M) float64 padded per-stage increments
+    idx_tables: torch.Tensor,  # (P, N, M) float64 index tables (+inf pad)
+    strides: torch.Tensor,  # (N,) int32 mixed-radix strides
+    radix: torch.Tensor,  # (N,) int32 stage counts
+    k_total: int,
+    total_stages: int,
+    *,
+    n_servers: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact (E[sojourn successful], E[sojourn all]) per policy, fused."""
+    p_pols, n, m, dev = _check_common(
+        probs, stage_durs, idx_tables, radix, total_stages, n_servers
+    )
+    K.check_tensor("strides", strides, torch.int32, (n,), dev)
+    K.check_count("k_total", k_total)
+    if dev.type == "cpu":
+        return dynamic_sojourn_enum_torch(
+            probs, stage_durs, idx_tables, strides, radix, k_total, total_stages,
+            n_servers,
+        )
+    out = K.launch(
+        "sojourn_dynamic", _SIGNATURES, "dynamic_enum_launch", dev, p_pols, k_total,
+        (probs.data_ptr(), stage_durs.data_ptr(), idx_tables.data_ptr(),
+         strides.data_ptr(), radix.data_ptr(), p_pols, n, m, k_total, total_stages,
+         min(n_servers, n)),
+    )
+    launches["dynamic_sojourn_enum"] += 1
+    return out
+
+
+def dynamic_sojourn_mc(
+    cdf: torch.Tensor,  # (N, M) float64 stop-probability CDF
+    stage_durs: torch.Tensor,  # (N, M) float64 padded per-stage increments
+    idx_tables: torch.Tensor,  # (P, N, M) float64 index tables (+inf pad)
+    radix: torch.Tensor,  # (N,) int32 stage counts
+    seed: int,
+    n_samples: int,
+    total_stages: int,
+    *,
+    n_servers: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streamed-MC (E[sojourn successful], E[sojourn all]) per policy."""
+    p_pols, n, m, dev = _check_common(
+        cdf, stage_durs, idx_tables, radix, total_stages, n_servers
+    )
+    K.check_count("n_samples", n_samples)
+    k0, k1 = rng.split_seed(seed)
+    if dev.type == "cpu":
+        return dynamic_sojourn_mc_torch(
+            cdf, stage_durs, idx_tables, radix, seed, n_samples, total_stages,
+            n_servers,
+        )
+    out = K.launch(
+        "sojourn_dynamic", _SIGNATURES, "dynamic_mc_launch", dev, p_pols, n_samples,
+        (cdf.data_ptr(), stage_durs.data_ptr(), idx_tables.data_ptr(),
+         radix.data_ptr(), p_pols, n, m, n_samples, k0, k1, total_stages,
+         min(n_servers, n)),
+    )
+    launches["dynamic_sojourn_mc"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public op
+# ---------------------------------------------------------------------------
+
+
+def sojourn_eval_dynamic(
+    probs: np.ndarray,  # (N, M) padded stop probabilities
+    stage_durs: np.ndarray,  # (N, M) padded per-stage increments
+    num_stages: np.ndarray,  # (N,) stage counts
+    idx_tables: np.ndarray,  # (P, N, M) or (N, M) policy index tables
+    *,
+    samples: tuple[int, int] | None = None,  # (seed, n_samples) streamed MC
+    n_servers: int = 1,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(E[sojourn successful], E[sojourn all]) per policy, as NumPy (P,) arrays.
+
+    With ``samples=None``, evaluates all ``K = prod(M_i)`` outcome
+    combinations exactly without materializing them.  With
+    ``samples=(seed, n_samples)``, estimates the same quantities by
+    streaming Monte Carlo from the Threefry stream (bitwise the static
+    op's stream and the ``ref.ref_mc_outcomes`` replay for the same
+    seed).  ``n_servers=W`` evaluates W homogeneous servers.  All P
+    policies go to one launch.  ``device=None`` is the CUDA card.
+
+    When :mod:`repro_torch.obs.profiling` is enabled, each call is timed
+    into a ``prof.sojourn_eval.dynamic.<mode>.<device>.seconds`` span.
+    """
+    dev = resolve_device(device)
+    mode = "mc" if samples is not None else "enum"
+    with profiling.span(f"sojourn_eval.dynamic.{mode}.{dev.type}"):
+        return _sojourn_eval_dynamic(
+            probs, stage_durs, num_stages, idx_tables, samples, n_servers, dev
+        )
+
+
+def dynamic_kernel_args(probs, stage_durs, num_stages, idx_tables, device,
+                        samples=None) -> tuple:
+    """Positional arguments of :func:`dynamic_sojourn_enum` (``samples=None``)
+    or :func:`dynamic_sojourn_mc` (``samples=(seed, n_samples)``) for the
+    (P, N, M) index tables of a padded workload (``n_servers`` is a keyword
+    of both)."""
+    probs = np.asarray(probs, dtype=np.float64)
+    num_stages = np.asarray(num_stages, dtype=np.int64)
+
+    def f64(a):  # a copy: the cached workload tables are read-only
+        return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+
+    total_stages = int(num_stages.sum())
+    if samples is not None:
+        cdf = np.cumsum(probs, axis=1)  # on the host, as the reference does
+        return (f64(cdf), f64(stage_durs), f64(idx_tables), i32(num_stages),
+                int(samples[0]), int(samples[1]), total_stages)
+    return (f64(probs), f64(stage_durs), f64(idx_tables),
+            i32(mixed_radix_strides(num_stages)), i32(num_stages),
+            int(np.prod(num_stages, dtype=np.int64)), total_stages)
+
+
+def _sojourn_eval_dynamic(probs, stage_durs, num_stages, idx_tables, samples,
+                          n_servers, dev):
+    if n_servers < 1:
+        raise ValueError(f"n_servers must be >= 1; got {n_servers}")
+    n, m = np.shape(probs)
+    idx_tables = np.asarray(idx_tables, dtype=np.float64)
+    if idx_tables.ndim == 2:
+        idx_tables = idx_tables[None]
+    if idx_tables.shape[1:] != (n, m):
+        raise ValueError(f"idx_tables must be (P, {n}, {m}); got {idx_tables.shape}")
+    if samples is not None and int(samples[1]) <= 0:
+        raise ValueError(f"n_samples must be positive; got {int(samples[1])}")
+    launch = dynamic_sojourn_mc if samples is not None else dynamic_sojourn_enum
+    args = dynamic_kernel_args(probs, stage_durs, num_stages, idx_tables, dev, samples)
+    es, ea = launch(*args, n_servers=n_servers)
+    return es.cpu().numpy(), ea.cpu().numpy()

@@ -1,0 +1,230 @@
+"""Static-order sojourn kernels: wrappers, launch counts and plain versions.
+
+``sojourn_enum`` and ``sojourn_mc`` replace the TPU kernels of the same
+names in ``repro/kernels/sojourn_eval/kernel.py``; their CUDA source is
+``csrc/sojourn_static.cu`` (design note there).  Both take per-order
+inputs whose job axis is pre-permuted by the caller (``ops.py``), so
+position ``pos`` is service position, and return
+``(E[sojourn | successful], E[sojourn | all])`` per order as float64
+tensors on the inputs' device.
+
+Dispatch is by device: a CUDA tensor launches the kernel (or raises), a
+CPU tensor runs the plain PyTorch version, ``sojourn_enum_torch`` /
+``sojourn_mc_torch``, which tile the index range as the ``lax.scan``
+paths of the JAX package do.  ``launches`` counts kernel launches and
+nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.sojourn_eval import _build, rng
+
+__all__ = [
+    "THREADS",
+    "launches",
+    "sojourn_enum",
+    "sojourn_mc",
+    "sojourn_enum_torch",
+    "sojourn_mc_torch",
+]
+
+#: Threads per block of the main kernels (``kThreads`` in csrc/common.cuh).
+THREADS = 256
+#: Blocks a launch aims for across all its orders (132 SMs on an H100).
+TARGET_BLOCKS = 4096
+#: Index counts must fit the kernels' 32-bit decode / counter words.
+MAX_COUNT = (1 << 31) - 1
+#: Soft cap on bytes of per-tile intermediates in the plain versions.
+PLAIN_TILE_BYTES = 256 << 20
+#: Kernel launches per wrapper since the last reset (set to 0 to reset).
+launches = {"sojourn_enum": 0, "sojourn_mc": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint
+_SIGNATURES = {
+    "sojourn_enum_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
+    "sojourn_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _P, _P, _P],
+}
+
+
+# ---------------------------------------------------------------------------
+# Shared wrapper plumbing (also used by dynamic.py)
+# ---------------------------------------------------------------------------
+
+
+def check_tensor(name: str, t, dtype: torch.dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor; got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}; got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_count(name: str, count: int) -> None:
+    if not 0 < count <= MAX_COUNT:
+        raise ValueError(f"{name} must be in [1, 2**31); got {count}")
+
+
+def blocks_per_order(count: int, n_orders: int) -> int:
+    """Blocks of ``THREADS`` per order: enough to fill the card, at most
+    one index per thread."""
+    return max(1, min(-(-count // THREADS), -(-TARGET_BLOCKS // n_orders)))
+
+
+def launch(stem, signatures, entry, device, n_orders, count, args) -> tuple:
+    """Allocate the partials and the output on ``device``, call the C
+    entry point ``entry`` on the current stream, raise on a CUDA error
+    and return ``(e_succ, e_all)``.  No synchronisation."""
+    if device.type != "cuda":
+        raise ValueError(f"{entry} launches on a CUDA device; got {device}")
+    lib = _build.library(stem, signatures)
+    nblk = blocks_per_order(count, n_orders)
+    with torch.cuda.device(device):
+        partials = torch.empty((n_orders, nblk, 2), dtype=torch.float64, device=device)
+        out = torch.empty((2, n_orders), dtype=torch.float64, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, entry)(
+            *args, nblk, partials.data_ptr(), out.data_ptr(), stream
+        )
+    _build.check(lib, code, entry)
+    return out[0], out[1]
+
+
+def _plain_tile(width: int) -> int:
+    """Indices per tile of a plain version whose lanes hold ``width`` values."""
+    return max(1, min(1 << 15, PLAIN_TILE_BYTES // (64 * max(width, 1))))
+
+
+def _permuted_gather(table_p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """table_p (P, N, M) gathered at stop stages s (T, P, N) -> (T, P, N)."""
+    p_orders, n, m = table_p.shape
+    base = (torch.arange(p_orders, device=s.device)[:, None] * n
+            + torch.arange(n, device=s.device)[None, :]) * m
+    return table_p.reshape(-1)[base[None] + s]
+
+
+def _accumulate(d, succ, w, e_succ, e_all) -> None:
+    """Eqs. (7)-(9) over one tile: d, succ (T, P, N) in service order, w (T, P)."""
+    n = d.shape[2]
+    t = torch.cumsum(d, dim=2)  # completion times
+    cnt = succ.sum(dim=2)
+    tot = (t * succ).sum(dim=2)
+    mean = torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)
+    e_succ += (w * mean).sum(dim=0)
+    e_all += (w * (t.sum(dim=2) / n)).sum(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Exact enumeration
+# ---------------------------------------------------------------------------
+
+
+def sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total: int):
+    """Plain version of :func:`sojourn_enum` on any device."""
+    p_orders, n, _ = sizes_p.shape
+    dev = sizes_p.device
+    strides = strides_p.to(torch.int64)[None]
+    radix = radix_p.to(torch.int64)[None]
+    e_succ = torch.zeros(p_orders, dtype=torch.float64, device=dev)
+    e_all = torch.zeros(p_orders, dtype=torch.float64, device=dev)
+    tile = _plain_tile(p_orders * n)
+    for lo in range(0, k_total, tile):
+        k = torch.arange(lo, min(lo + tile, k_total), device=dev)
+        s = (k[:, None, None] // strides) % radix  # (T, P, N) decode
+        w = _permuted_gather(probs_p, s).prod(dim=2)  # Eq. (8)
+        _accumulate(_permuted_gather(sizes_p, s), s == radix - 1, w, e_succ, e_all)
+    return e_succ, e_all
+
+
+def sojourn_enum(
+    sizes_p: torch.Tensor,  # (P, N, M) float64 per-order permuted cumulative sizes
+    probs_p: torch.Tensor,  # (P, N, M) float64 per-order permuted stop probabilities
+    strides_p: torch.Tensor,  # (P, N) int32 permuted mixed-radix strides
+    radix_p: torch.Tensor,  # (P, N) int32 permuted stage counts
+    k_total: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact (E[sojourn successful], E[sojourn all]) per order, fused."""
+    p_orders, n, m = sizes_p.shape
+    dev = sizes_p.device
+    check_tensor("sizes_p", sizes_p, torch.float64, (p_orders, n, m), dev)
+    check_tensor("probs_p", probs_p, torch.float64, (p_orders, n, m), dev)
+    check_tensor("strides_p", strides_p, torch.int32, (p_orders, n), dev)
+    check_tensor("radix_p", radix_p, torch.int32, (p_orders, n), dev)
+    check_count("k_total", k_total)
+    if dev.type == "cpu":
+        return sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total)
+    out = launch(
+        "sojourn_static", _SIGNATURES, "sojourn_enum_launch", dev, p_orders, k_total,
+        (sizes_p.data_ptr(), probs_p.data_ptr(), strides_p.data_ptr(),
+         radix_p.data_ptr(), p_orders, n, m, k_total),
+    )
+    launches["sojourn_enum"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Streamed Monte Carlo
+# ---------------------------------------------------------------------------
+
+
+def sojourn_mc_torch(sizes_p, cdf_p, radix_p, orders, seed: int, n_samples: int):
+    """Plain version of :func:`sojourn_mc` on any device."""
+    p_orders, n, _ = sizes_p.shape
+    dev = sizes_p.device
+    key = rng.split_seed(seed)
+    radix = radix_p.to(torch.int64)[None]
+    orders = orders.to(torch.int64)
+    e_succ = torch.zeros(p_orders, dtype=torch.float64, device=dev)
+    e_all = torch.zeros(p_orders, dtype=torch.float64, device=dev)
+    job_ids = torch.arange(n, device=dev)[None, :]
+    tile = _plain_tile(p_orders * n)
+    for lo in range(0, n_samples, tile):
+        k = torch.arange(lo, min(lo + tile, n_samples), device=dev)
+        # the stream is keyed by ORIGINAL job id: draw per job, then permute
+        bits, _ = rng.threefry2x32_torch(key, k[:, None].expand(-1, n), job_ids.expand(len(k), -1))
+        u = rng.uniform_from_bits(bits)[:, orders]  # (T, P, N)
+        scnt = (u[..., None] >= cdf_p[None]).sum(dim=3)  # inverse-CDF count
+        s = torch.minimum(scnt, radix - 1)
+        w = torch.full((len(k), p_orders), 1.0 / n_samples, dtype=torch.float64, device=dev)
+        _accumulate(_permuted_gather(sizes_p, s), s == radix - 1, w, e_succ, e_all)
+    return e_succ, e_all
+
+
+def sojourn_mc(
+    sizes_p: torch.Tensor,  # (P, N, M) float64 per-order permuted cumulative sizes
+    cdf_p: torch.Tensor,  # (P, N, M) float64 per-order permuted stop-probability CDF
+    radix_p: torch.Tensor,  # (P, N) int32 permuted stage counts
+    orders: torch.Tensor,  # (P, N) int32 original job ids by position
+    seed: int,
+    n_samples: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streamed-MC (E[sojourn successful], E[sojourn all]) per order."""
+    p_orders, n, m = sizes_p.shape
+    dev = sizes_p.device
+    check_tensor("sizes_p", sizes_p, torch.float64, (p_orders, n, m), dev)
+    check_tensor("cdf_p", cdf_p, torch.float64, (p_orders, n, m), dev)
+    check_tensor("radix_p", radix_p, torch.int32, (p_orders, n), dev)
+    check_tensor("orders", orders, torch.int32, (p_orders, n), dev)
+    check_count("n_samples", n_samples)
+    k0, k1 = rng.split_seed(seed)
+    if dev.type == "cpu":
+        return sojourn_mc_torch(sizes_p, cdf_p, radix_p, orders, seed, n_samples)
+    out = launch(
+        "sojourn_static", _SIGNATURES, "sojourn_mc_launch", dev, p_orders, n_samples,
+        (sizes_p.data_ptr(), cdf_p.data_ptr(), orders.data_ptr(), radix_p.data_ptr(),
+         p_orders, n, m, n_samples, k0, k1),
+    )
+    launches["sojourn_mc"] += 1
+    return out

@@ -1,0 +1,130 @@
+"""Public fused sojourn-evaluation op for static orders.
+
+The counterpart of ``repro/kernels/sojourn_eval/ops.py``, with the device
+in place of the ``impl`` dispatch: on the CUDA card (``device=None``)
+every batch of orders launches the ``sojourn_enum`` / ``sojourn_mc``
+kernels; with ``device="cpu"`` the same wrappers run their plain PyTorch
+versions.  Entry modes:
+
+* ``sojourn_eval(..., outcomes=None)`` — *exact enumeration* of all
+  ``K = prod(M_i)`` combinations, decoded on the fly (never
+  materialized).
+* ``sojourn_eval(..., samples=(seed, n_samples))`` — *streaming Monte
+  Carlo* from the counter-based Threefry stream, keyed by original job
+  id, so every order under one seed sees identical outcomes.
+* ``outcomes=`` / ``weights=`` (explicit outcome tables) belong to the
+  ``sojourn_outcomes`` kernel, which this package does not carry yet:
+  they raise ``NotImplementedError``.
+
+Orders are evaluated in batches of the reference's size
+(:func:`_order_batch`, at most 4096), each batch one launch; the inputs'
+job axis is permuted on the host per order (:func:`static_kernel_args`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.sojourn_eval import kernel as K
+from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
+from repro_torch.obs import profiling
+
+__all__ = ["sojourn_eval", "static_kernel_args", "permuted_inputs", "OUTCOMES_NOT_PORTED"]
+
+#: Combination indices per tile of the reference's XLA scan (batch sizing).
+XLA_TILE = 1 << 15
+#: Combination indices per tile of the reference's Pallas kernels.
+BLOCK_COMBOS = 8 * 128
+#: Soft cap on bytes of per-tile intermediates (the reference's batch rule).
+_TILE_BYTES_BUDGET = 256 << 20
+
+OUTCOMES_NOT_PORTED = "explicit outcome tables: sojourn_outcomes, port slice 2"
+
+
+def _order_batch(n_orders: int, tile: int, n: int) -> int:
+    """Orders per launch, as the reference batches them."""
+    per_order = tile * n * 8  # float64 worst case
+    return max(1, min(n_orders, 4096, _TILE_BYTES_BUDGET // max(per_order, 1)))
+
+
+def permuted_inputs(tables, orders_b: np.ndarray, device) -> list[torch.Tensor]:
+    """Take the job axis of each host array along every order of the batch
+    and move it to ``device``: float arrays as float64, integers as int32."""
+    out = []
+    for a in tables:
+        a = np.take(a, orders_b, axis=0)
+        dtype = np.float64 if np.issubdtype(a.dtype, np.floating) else np.int32
+        out.append(torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device))
+    return out
+
+
+def sojourn_eval(
+    sizes: np.ndarray,  # (N, M) padded cumulative sizes
+    probs: np.ndarray,  # (N, M) padded stop probabilities
+    num_stages: np.ndarray,  # (N,) stage counts
+    orders: np.ndarray,  # (P, N) static orders
+    *,
+    outcomes: np.ndarray | None = None,
+    weights: np.ndarray | None = None,
+    samples: tuple[int, int] | None = None,  # (seed, n_samples) streamed MC
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(E[sojourn successful], E[sojourn all]) per order, as NumPy (P,) arrays.
+
+    When :mod:`repro_torch.obs.profiling` is enabled, each call is timed
+    into a ``prof.sojourn_eval.static.<mode>.<device>.seconds`` span (the
+    copy of the results to NumPy waits for the card, so the span is end
+    to end).
+    """
+    if outcomes is not None or weights is not None:
+        raise NotImplementedError(OUTCOMES_NOT_PORTED)
+    dev = resolve_device(device)
+    mode = "mc" if samples is not None else "enum"
+    with profiling.span(f"sojourn_eval.static.{mode}.{dev.type}"):
+        return _sojourn_eval(sizes, probs, num_stages, orders, samples, dev)
+
+
+def static_kernel_args(sizes, probs, num_stages, orders_b, device, samples=None) -> tuple:
+    """Positional arguments of :func:`kernel.sojourn_enum` (``samples=None``)
+    or :func:`kernel.sojourn_mc` (``samples=(seed, n_samples)``) for one
+    batch of orders ``orders_b`` (P, N) of a padded workload."""
+    sizes = np.asarray(sizes, dtype=np.float64)
+    probs = np.asarray(probs, dtype=np.float64)
+    num_stages = np.asarray(num_stages, dtype=np.int64)
+    radix = num_stages.astype(np.int32)
+    orders_b = np.asarray(orders_b, dtype=np.int32)
+    if samples is not None:
+        cdf = np.cumsum(probs, axis=1)  # on the host: the reference's exact CDF
+        job_ids = np.arange(sizes.shape[0], dtype=np.int32)
+        tensors = permuted_inputs([sizes, cdf, radix, job_ids], orders_b, device)
+        return (*tensors, int(samples[0]), int(samples[1]))
+    strides = mixed_radix_strides(num_stages).astype(np.int32)
+    tensors = permuted_inputs([sizes, probs, strides, radix], orders_b, device)
+    return (*tensors, int(np.prod(num_stages, dtype=np.int64)))
+
+
+def _sojourn_eval(sizes, probs, num_stages, orders, samples, dev):
+    num_stages = np.asarray(num_stages, dtype=np.int64)
+    orders = np.asarray(orders, dtype=np.int32)
+    n = num_stages.shape[0]
+    if orders.ndim != 2 or orders.shape[1] != n:
+        raise ValueError(f"orders must be (P, {n}); got {orders.shape}")
+    if samples is not None:
+        count = int(samples[1])
+        if count <= 0:
+            raise ValueError(f"n_samples must be positive; got {count}")
+        launch = K.sojourn_mc
+    else:
+        count = int(np.prod(num_stages, dtype=np.int64))
+        launch = K.sojourn_enum
+    tile = min(XLA_TILE, max(BLOCK_COMBOS, 1 << (count - 1).bit_length()))
+    pb = _order_batch(orders.shape[0], tile, n)
+    parts = [
+        launch(*static_kernel_args(sizes, probs, num_stages, orders[lo : lo + pb], dev, samples))
+        for lo in range(0, orders.shape[0], pb)
+    ]
+    e_succ = torch.cat([p[0] for p in parts]).cpu().numpy()
+    e_all = torch.cat([p[1] for p in parts]).cpu().numpy()
+    return e_succ, e_all

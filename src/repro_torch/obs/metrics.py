@@ -1,0 +1,198 @@
+"""Counters / gauges / histograms with a JSON-able snapshot surface.
+
+The port's copy of ``repro/obs/metrics.py``: the :class:`MetricsRegistry`
+that the profiling spans (:mod:`repro_torch.obs.profiling`) and the
+workload-cache latency probes feed, and :func:`format_snapshot` for CLI
+output.  ``record_run_metrics`` belongs to the online scheduling path,
+which this package does not carry yet.
+
+Design constraints: metric updates are hot-path cheap (an attribute
+add / list append), snapshots are pure reads, and everything in a
+snapshot is JSON-serializable.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from contextlib import contextmanager
+
+import numpy as np
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "get_registry",
+    "format_snapshot",
+]
+
+#: Percentiles reported by histogram snapshots.
+PERCENTILES = (50, 90, 95, 99)
+
+
+class Counter:
+    """Monotone event count."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        self.value += n
+
+
+class Gauge:
+    """Last-write-wins scalar."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+
+class Histogram:
+    """Value distribution; percentiles computed at snapshot time.
+
+    Values are kept in a flat Python list (``observe``) or appended as
+    numpy chunks (``observe_many``), so recording a million sojourns is
+    one array append, not a million calls.
+    """
+
+    __slots__ = ("_values", "_chunks")
+
+    def __init__(self):
+        self._values: list[float] = []
+        self._chunks: list[np.ndarray] = []
+
+    def observe(self, v: float) -> None:
+        self._values.append(float(v))
+
+    def observe_many(self, values) -> None:
+        arr = np.asarray(values, dtype=np.float64).ravel()
+        if arr.size:
+            self._chunks.append(arr)
+
+    def _all(self) -> np.ndarray:
+        parts = list(self._chunks)
+        if self._values:
+            parts.append(np.asarray(self._values))
+        if not parts:
+            return np.empty(0)
+        return np.concatenate(parts)
+
+    @property
+    def count(self) -> int:
+        return len(self._values) + sum(c.size for c in self._chunks)
+
+    def snapshot(self) -> dict:
+        vals = self._all()
+        if vals.size == 0:
+            return {"count": 0}
+        out = {
+            "count": int(vals.size),
+            "mean": float(vals.mean()),
+            "min": float(vals.min()),
+            "max": float(vals.max()),
+            "sum": float(vals.sum()),
+        }
+        pts = np.percentile(vals, PERCENTILES)
+        out.update({f"p{p}": float(v) for p, v in zip(PERCENTILES, pts)})
+        return out
+
+
+class MetricsRegistry:
+    """Name-keyed counters/gauges/histograms with get-or-create access.
+
+    Names are dotted strings (``sojourn.successful``, ``cache.mem_hit``,
+    ``prof.sojourn_eval.static.enum.xla.seconds``); a name is bound to
+    the first type that claims it and re-registering as another type
+    raises.
+    """
+
+    def __init__(self):
+        self._metrics: dict[str, object] = {}
+
+    def _get(self, name: str, cls):
+        m = self._metrics.get(name)
+        if m is None:
+            m = self._metrics[name] = cls()
+        elif not isinstance(m, cls):
+            raise TypeError(
+                f"metric {name!r} already registered as {type(m).__name__}"
+            )
+        return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._get(name, Histogram)
+
+    @contextmanager
+    def timer(self, name: str):
+        """Time a block into ``<name>.seconds`` (histogram)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.histogram(f"{name}.seconds").observe(time.perf_counter() - t0)
+
+    def clear(self) -> None:
+        self._metrics.clear()
+
+    def snapshot(self) -> dict:
+        """JSON-able ``{"counters": ..., "gauges": ..., "histograms": ...}``."""
+        out = {"counters": {}, "gauges": {}, "histograms": {}}
+        for name in sorted(self._metrics):
+            m = self._metrics[name]
+            if isinstance(m, Counter):
+                out["counters"][name] = m.value
+            elif isinstance(m, Gauge):
+                out["gauges"][name] = m.value
+            else:
+                out["histograms"][name] = m.snapshot()
+        return out
+
+    def to_json(self, path: str | None = None, **extra) -> str:
+        """Serialize the snapshot (plus ``extra`` top-level keys)."""
+        doc = {**self.snapshot(), **extra}
+        text = json.dumps(doc, indent=1, sort_keys=True)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry (profiling spans, cache probes)."""
+    return _DEFAULT
+
+
+def format_snapshot(snapshot: dict, title: str = "metrics") -> str:
+    """Render a snapshot as an aligned text block for CLI output."""
+    lines = [f"== {title} =="]
+    for name, v in snapshot.get("counters", {}).items():
+        lines.append(f"  {name:44s} {v}")
+    for name, v in snapshot.get("gauges", {}).items():
+        lines.append(f"  {name:44s} {v:.6g}")
+    for name, h in snapshot.get("histograms", {}).items():
+        if h.get("count", 0) == 0:
+            lines.append(f"  {name:44s} (empty)")
+            continue
+        lines.append(
+            f"  {name:44s} n={h['count']} mean={h['mean']:.6g} "
+            f"p50={h['p50']:.6g} p99={h['p99']:.6g} max={h['max']:.6g}"
+        )
+    return "\n".join(lines)
