@@ -2,29 +2,48 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Run from the repository root on a machine with one CUDA card (the first
-run builds the kernels from ``src/repro_torch/kernels/sojourn_eval/csrc``
-with ``nvcc``):
+run builds the kernels from ``src/repro_torch/kernels/*/csrc`` with
+``nvcc``):
 
     python3 chip_smoke.py
 
 Phases, each of which must pass:
 
-0. build every kernel with ``nvcc`` and print its registers and spills;
-1. hold each of the four kernels against its plain PyTorch version on the
-   card, at mid sizes, to a relative error of at most 1e-9;
+0. build every kernel with ``nvcc`` (one process per source, all at
+   once) and print its registers and spills;
+1. hold each of the six kernels against its plain PyTorch version on the
+   card at mid sizes: the sojourn kernels to a relative error of at most
+   1e-9 (with one dynamic case whose rank table holds a +inf index,
+   ROADMAP fault R2), ``flash_fwd`` in bf16 to the tolerances
+   ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``;
 2. replay the paper's worked example (SR 10, SERPT 9.75, OPTIMAL 9.1 with
    order [0, 1], RANK 9.1) through the default-device entry points;
-3. drive the main path at full size, through the kernels only:
-   ``evaluate_many`` at N=26 (K = 2**26, the exact cap), at N=8, M=3 with
-   OPTIMAL (8! orders x 3**8 combinations) and at N=27 (K = 2**27, streamed
-   with 2**23 samples).  The launch counts are set to 0 just before and
-   read just after; every kernel must have launched.  Then a constant
-   index table through the dynamic kernel must give the static RANK
-   order's value at N=26;
-4. time each kernel and its plain version with CUDA events at the
-   largest phase-3 shapes (and hold the two results against each other
-   there too), and reckon the kernel's bound.  Phase 1 times both at its
-   mid sizes as well.
+3. drive the evaluator's main path at full size, through the kernels
+   only: ``evaluate_many`` at N=26 (K = 2**26, the exact cap), at N=8,
+   M=3 with OPTIMAL (8! orders x 3**8 combinations) and at N=27
+   (K = 2**27, streamed with 2**23 samples).  Then a constant index
+   table through the dynamic kernel must give the static RANK order's
+   value at N=26;
+4. drive the explicit-outcome path: ``enumerate_outcomes`` at N=21
+   (K = 2**21) evaluated for RANK and SR, and ``sample_outcomes`` with
+   2**21 samples at N=27 over RANK plus 16 RANDOM orders; the table
+   values must equal the exact (table-free) ones to 1e-9;
+5. serve Qwen3-8B at full width with random weights: a prefill of 4 x
+   2048 tokens and 32 greedy decode steps through
+   ``repro_torch.launch.serve``; ``flash_fwd`` must launch once per layer
+   (36).  The first decode step's logits are held to a prefill of the
+   prompt plus its token within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``.
+   One more prefill and three decode steps run under ``torch.profiler``
+   for the card's busy share;
+6. time each kernel and its plain version with CUDA events at the
+   largest shapes of phases 3-5 (and hold the two results against each
+   other there too), time ``scaled_dot_product_attention`` beside
+   ``flash_fwd`` as its library yardstick, and reckon each kernel's
+   bound.  Phase 1 times both at its mid sizes as well.
+
+Phases 3, 4 and 5 each set every launch count to 0 just before they
+drive their path and read the counts just after: every kernel of the
+path must have launched.
 
 It prints the kernel report as one JSON line, the card's name and power
 limit from ``nvidia-smi``, and as its last line
@@ -44,24 +63,47 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RTOL = 1e-9
-#: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate and
-#: HBM bandwidth, at the full 700 W power limit.
+#: flash_fwd against its plain version, both bf16 with f32 accumulation:
+#: O may differ by a few bf16 ulps (P is rounded to bf16 after sums taken
+#: in another order; one ulp is 2**-8 at |O| in [0.5, 1)), the float32 LSE
+#: by float32 rounding.
+FLASH_O_ATOL = 1e-2
+FLASH_LSE_ATOL = 1e-4
+#: Qwen3-8B decode step 1 against a prefill of prompt + 1 token, both bf16:
+#: the two paths round at different places (the decode's oracle attention
+#: normalises P before its bf16 rounding, the prefill's kernel after; the
+#: matrix products have other shapes), and 36 layers add the differences.
+#: Bars: relative L2 error of the logits, and their largest absolute error
+#: (the logits of random weights have a standard deviation near 1).  An
+#: H100 run measured 4.5e-2 and 0.23; a wrong cache slot or position gives
+#: unrelated logits, a relative L2 error near 1.4.
+SERVE_REL_L2 = 0.1
+SERVE_MAX_ABS = 0.5
+#: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate,
+#: dense bf16 tensor-core rate and HBM bandwidth, at the full 700 W limit.
 FP64_FLOPS = 34e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "src/repro_torch/kernels/sojourn_eval/csrc/"
+SOJOURN_SRC = "src/repro_torch/kernels/sojourn_eval/csrc/"
 REPLACES = {
     "sojourn_enum": "src/repro/kernels/sojourn_eval/kernel.py:162",
+    "sojourn_outcomes": "src/repro/kernels/sojourn_eval/kernel.py:256",
     "sojourn_mc": "src/repro/kernels/sojourn_eval/kernel.py:367",
     "dynamic_sojourn_enum": "src/repro/kernels/sojourn_eval/dynamic.py:351",
     "dynamic_sojourn_mc": "src/repro/kernels/sojourn_eval/dynamic.py:410",
+    "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:163",
 }
 SOURCES = {
-    "sojourn_enum": "sojourn_static.cu",
-    "sojourn_mc": "sojourn_static.cu",
-    "dynamic_sojourn_enum": "sojourn_dynamic.cu",
-    "dynamic_sojourn_mc": "sojourn_dynamic.cu",
+    "sojourn_enum": SOJOURN_SRC + "sojourn_static.cu",
+    "sojourn_outcomes": SOJOURN_SRC + "sojourn_static.cu",
+    "sojourn_mc": SOJOURN_SRC + "sojourn_static.cu",
+    "dynamic_sojourn_enum": SOJOURN_SRC + "sojourn_dynamic.cu",
+    "dynamic_sojourn_mc": SOJOURN_SRC + "sojourn_dynamic.cu",
+    "flash_fwd": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
 }
 SEED = 0x5EED_CAFE
+#: The serving phase: Qwen3-8B, 4 requests of 2048 prompt tokens, 32 steps.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "qwen3-8b", 4, 2048, 32
 
 
 class PhaseFailure(RuntimeError):
@@ -104,6 +146,25 @@ def cuda_ms(fn, reps: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def launch_counters() -> list[dict]:
+    """The launch-count dicts of every kernel wrapper."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.sojourn_eval import dynamic as D
+    from repro_torch.kernels.sojourn_eval import kernel as K
+
+    return [K.launches, D.launches, FK.launches]
+
+
+def reset_counts() -> None:
+    for counter in launch_counters():
+        for name in counter:
+            counter[name] = 0
+
+
+def read_counts() -> dict:
+    return {name: c for counter in launch_counters() for name, c in counter.items()}
 
 
 def check_against_plain(report, name, shape, got, want) -> None:
@@ -202,8 +263,27 @@ def dynamic_flops(jobs, n_pols: int, count: int, mc: bool) -> float:
     return n_pols * (count * (decode + n + 6) + seats + succ_adds)
 
 
-def bound_ms(flops: float, in_bytes: int, out_bytes: int) -> tuple[float, str]:
-    t_ops = flops / FP64_FLOPS * 1e3
+def outcomes_flops(outcomes, num_stages, n_orders: int) -> float:
+    """Float64 operations of ``sojourn_outcomes`` on this table: per
+    position two completion-time adds, one add per success (counted in
+    the table), and per row the six-operation Eq. (7)/(9) tail."""
+    import numpy as np
+
+    k_total, n = outcomes.shape
+    successes = int(np.count_nonzero(outcomes == np.asarray(num_stages)[None, :] - 1))
+    return n_orders * (k_total * (2 * n + 6) + successes)
+
+
+def flash_flops(b: int, hq: int, sq: int, skv: int, d: int, causal: bool) -> float:
+    """Tensor-core operations of one attention forward: 2 * D for each
+    visible (query, key) pair in each of QK^T and PV."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    return 4.0 * b * hq * d * pairs
+
+
+def bound_ms(flops: float, in_bytes: int, out_bytes: int,
+             peak: float = FP64_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak * 1e3
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -220,7 +300,7 @@ def tensor_bytes(args) -> int:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels.sojourn_eval import _build
+    from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -237,8 +317,8 @@ def phase_kernels(dev, report) -> None:
     sizes and at the N=8, M=3 shapes of the OPTIMAL cell."""
     import numpy as np
 
-    from repro_torch.core import policies
-    from repro_torch.core.jobs import generate_workload
+    from repro_torch.core import evaluator, policies
+    from repro_torch.core.jobs import JobSpec, generate_workload
     from repro_torch.kernels.sojourn_eval import dynamic as D
     from repro_torch.kernels.sojourn_eval import kernel as K
 
@@ -287,6 +367,88 @@ def phase_kernels(dev, report) -> None:
             D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
             dynamic_args(jobs, tables, dev))
 
+    # fault R2: a job that never succeeds has rank index +inf
+    jobs = generate_workload(np.random.default_rng(12), 12)
+    jobs[5] = JobSpec(sizes=[1.0, 3.0], probs=[1.0, 0.0], job_id=jobs[5].job_id)
+    table = policies.index_table(jobs, "rank")
+    require(bool(np.isinf(table).any()), "the R2 case has no +inf rank index")
+    compare("dynamic_sojourn_enum", "N=12 M=2 K=2^12 P=1 (rank table with a +inf index)",
+            D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
+            dynamic_args(jobs, [table], dev))
+
+    # explicit outcome tables: an enumerated one and a sampled one
+    jobs = generate_workload(np.random.default_rng(16), 16)
+    rank = policies.rank_order(jobs)
+    orders = np.stack([rank, rank[::-1]] + [rng.permutation(16) for _ in range(9)])
+    for label, (outcomes, weights) in (
+        ("N=16 M=2 K=2^16 enumerated, P=11", evaluator.enumerate_outcomes(jobs)),
+        ("N=16 M=2 S=2^18 sampled, P=11", evaluator.sample_outcomes(jobs, 1 << 18, rng)),
+    ):
+        compare("sojourn_outcomes", label, K.sojourn_outcomes, K.sojourn_outcomes_torch,
+                outcomes_args(jobs, orders, outcomes, weights, dev),
+                time_it=label.startswith("N=16 M=2 K"))
+
+    # flash_fwd: causal GQA, a sliding window, ragged non-causal, head dim 64
+    for shape, time_it in (((2, 8, 2, 512, 512, 128, True, None), True),
+                           ((1, 8, 2, 384, 384, 128, True, 100), False),
+                           ((1, 4, 1, 100, 300, 64, False, None), False),
+                           ((1, 8, 8, 200, 200, 128, True, None), False)):
+        check_flash(dev, report, shape, time_it)
+
+
+def outcomes_args(jobs, orders, outcomes, weights, dev):
+    from repro_torch.core import policies
+    from repro_torch.kernels.sojourn_eval import ops
+
+    sizes, _, num_stages = policies.padded_arrays(jobs)
+    tables = ops.outcome_tables(outcomes, weights, num_stages, dev)
+    return ops.outcomes_kernel_args(sizes, num_stages, orders, tables, dev)
+
+
+def flash_inputs(dev, b, hq, hkv, sq, skv, d, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+
+def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
+    """``flash_fwd`` against its plain version on bf16 inputs of ``shape``
+    (B, Hq, Hkv, Sq, Skv, D, causal, window); returns the timings asked for."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    b, hq, hkv, sq, skv, d, causal, window = shape
+    q, k, v = qkv or flash_inputs(dev, b, hq, hkv, sq, skv, d)
+    kw = dict(scale=d**-0.5, causal=causal, window=window)
+    out = {}
+    if time_it:
+        cuda_ms(lambda: FK.flash_fwd(q, k, v, **kw), 2)  # warm up
+        out["ms"], (o, lse) = cuda_ms(lambda: FK.flash_fwd(q, k, v, **kw), reps)
+        out["plain_ms"], (o_p, lse_p) = cuda_ms(lambda: FK.flash_fwd_torch(q, k, v, **kw), 1)
+    else:
+        o, lse = FK.flash_fwd(q, k, v, **kw)
+        o_p, lse_p = FK.flash_fwd_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all()),
+            f"flash_fwd {shape}: non-finite output")
+    err_o = float((o.float() - o_p.float()).abs().max())
+    err_lse = float((lse - lse_p).abs().max())
+    r = report.setdefault("flash_fwd", {"max_abs_err": 0.0, "max_lse_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err_o)
+    r["max_lse_err"] = max(r["max_lse_err"], err_lse)
+    log(f"[kernel vs plain] flash_fwd (B, Hq, Hkv, Sq, Skv, D, causal, window)={shape}: "
+        f"O max abs err {err_o:.3e}, LSE {err_lse:.3e}")
+    require(err_o <= FLASH_O_ATOL, f"flash_fwd {shape}: O err {err_o:.3e} > {FLASH_O_ATOL}")
+    require(err_lse <= FLASH_LSE_ATOL,
+            f"flash_fwd {shape}: LSE err {err_lse:.3e} > {FLASH_LSE_ATOL}")
+    if time_it and "phase1_ms" not in r:
+        r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
+        log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
+    return out
+
 
 def phase_worked_example() -> None:
     """Phase 2: paper Section III-A through the default-device entry points."""
@@ -317,8 +479,6 @@ def phase_main_path() -> dict:
 
     from repro_torch.core import evaluator
     from repro_torch.core.jobs import generate_workload
-    from repro_torch.kernels.sojourn_eval import dynamic as D
-    from repro_torch.kernels.sojourn_eval import kernel as K
 
     cells = [
         ("N=26 M=2 exact (K=2^26)", 31, 26, 2, ("rank", "serpt", "sr", "random"), 4096),
@@ -328,10 +488,7 @@ def phase_main_path() -> dict:
          ("rank", "serpt", "sr", "random"), 1 << 23),
     ]
     workloads = {}
-    for name in K.launches:
-        K.launches[name] = 0
-    for name in D.launches:
-        D.launches[name] = 0
+    reset_counts()
     results = []
     for label, seed, n, m, algs, mc_samples in cells:
         rng = np.random.default_rng(seed)
@@ -342,7 +499,7 @@ def phase_main_path() -> dict:
         secs = time.perf_counter() - t0
         results.append((label, res))
         log(f"[main path] {label}: {res} in {secs:.3f} s (host clock, results on host)")
-    counts = {**K.launches, **D.launches}
+    counts = read_counts()
     log(f"[main path] launches: {counts}")
     for label, res in results:
         for alg, v in res.items():
@@ -350,8 +507,8 @@ def phase_main_path() -> dict:
     opt = results[1][1]
     require(opt["optimal"] <= opt["rank"] * (1 + RTOL),
             f"OPTIMAL {opt['optimal']!r} above RANK {opt['rank']!r}")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the main path")
+    for name in ("sojourn_enum", "sojourn_mc", "dynamic_sojourn_enum", "dynamic_sojourn_mc"):
+        require(counts[name] > 0, f"kernel {name} was not launched on the main path")
     return {"launches": counts, "workloads": workloads}
 
 
@@ -373,14 +530,131 @@ def phase_cross_check(jobs) -> None:
     require(rel <= RTOL, f"constant-index dynamic != static RANK: rel {rel:.3e}")
 
 
-def phase_timing(dev, workloads, report) -> None:
-    """Phase 4: each kernel and its plain version at the largest phase-3
-    shapes, the kernel's last timed result held against the plain one;
-    then the bound."""
+def phase_outcomes_path() -> dict:
+    """Phase 4: the explicit-outcome path at K = 2**21, launch counts
+    around it; then each table value against the table-free one."""
+    import numpy as np
+
+    from repro_torch.core import evaluator, policies
+    from repro_torch.core.jobs import generate_workload
+
+    rng = np.random.default_rng(21)
+    j21 = generate_workload(rng, 21)
+    j27 = generate_workload(rng, 27)
+    rank21 = policies.rank_order(j21)
+    reset_counts()
+    t0 = time.perf_counter()
+    table21 = evaluator.enumerate_outcomes(j21)
+    rank_tab = evaluator.expected_sojourn_static(j21, rank21, *table21)
+    sr_tab = evaluator.expected_sojourn_dynamic(j21, "sr", *table21)
+    table27 = evaluator.sample_outcomes(j27, 1 << 21, rng)
+    orders = np.stack([policies.rank_order(j27)]
+                      + [policies.random_order(j27, rng) for _ in range(16)])
+    mc27 = evaluator.expected_sojourn_static(j27, orders, *table27)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[outcomes path] N=21 K=2^21 enumerated: RANK={rank_tab!r} SR={sr_tab!r}; N=27 "
+        f"S=2^21 sampled: RANK={mc27[0]!r}, 16 RANDOM in [{mc27[1:].min()!r}, "
+        f"{mc27[1:].max()!r}]; {secs:.3f} s (host clock, tables built on the host)")
+    log(f"[outcomes path] launches: {counts}")
+    require(counts["sojourn_outcomes"] > 0, "sojourn_outcomes was not launched on its path")
+    require(bool(np.all(np.isfinite(mc27))) and bool(np.all(mc27 > 0)), f"MC values {mc27}")
+    rank_exact = evaluator.expected_sojourn_static(j21, rank21)
+    sr_exact = evaluator.expected_sojourn_dynamic(j21, "sr")
+    rel = max(rel_err(rank_tab, rank_exact), rel_err(sr_tab, sr_exact))
+    log(f"[outcomes path] table vs exact at N=21: RANK {rank_exact!r}, SR {sr_exact!r}: "
+        f"max rel err {rel:.3e}")
+    require(rel <= RTOL, f"table values differ from the exact ones: rel {rel:.3e}")
+    return {"launches": counts, "jobs": j21, "table": table21}
+
+
+def phase_serving(dev) -> dict:
+    """Phase 5: Qwen3-8B at full width, random weights from a seed, served
+    through ``repro_torch.launch.serve``; launch counts around the run."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.init import tree_bytes
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                            device=dev)
+    torch.cuda.synchronize()
+    weights_bytes = tree_bytes(params)
+    log(f"[serving] {cfg.name}: {cfg.param_count() / 1e9:.4g} B parameters, "
+        f"{weights_bytes / 1e9:.4g} GB of weights made in {time.perf_counter() - t0:.1f} s")
+    plan = serve.ServePlan(cfg=cfg, max_len=SERVE_PROMPT + SERVE_STEPS + 1, device=dev)
+    serve.generate(plan, params, prompts[:, :64], gen_len=2)  # warm up: cuBLAS, the kernel
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    decode_ms = [t * 1e3 for t in res.decode_s]
+    log(f"[serving] prefill {SERVE_BATCH} x {SERVE_PROMPT}: {res.prefill_s * 1e3:.1f} ms; "
+        f"{len(decode_ms)} decode steps: mean {sum(decode_ms) / len(decode_ms):.2f} ms, "
+        f"min {min(decode_ms):.2f}, max {max(decode_ms):.2f} (host clock, synchronised)")
+    log(f"[serving] cache {res.cache_bytes / 1e9:.4g} GB, prefill logits "
+        f"{res.logits_bytes / 1e9:.4g} GB, peak allocated {peak / 1e9:.4g} GB")
+    log(f"[serving] launches: {counts}; tokens of req0: {res.tokens[0, :8].tolist()}")
+    require(counts["flash_fwd"] == cfg.n_layers,
+            f"flash_fwd launched {counts['flash_fwd']} times in one prefill of "
+            f"{cfg.n_layers} layers")
+    require(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_STEPS + 1), "token count")
+    require(int(res.tokens.max()) < cfg.vocab_size and int(res.tokens.min()) >= 0,
+            "a token outside the vocabulary")
+    first = res.first_decode_logits
+    require(bool(torch.isfinite(first).all()), "non-finite decode logits")
+    # decode step 1 against a prefill of the prompt plus the prefill's token
+    longer = torch.cat([prompts, res.tokens[:, :1]], dim=1)
+    want, _ = serve.make_prefill_fn(plan)(params, {"tokens": longer})
+    want = want[:, -1]
+    rel_l2 = float((first - want).norm() / want.norm())
+    max_abs = float((first - want).abs().max())
+    log(f"[serving] decode step 1 vs prefill of {SERVE_PROMPT + 1} tokens: rel L2 "
+        f"{rel_l2:.3e}, max abs {max_abs:.3e} (logit std {float(want.std()):.3f}), argmax "
+        f"agrees on {int((first.argmax(-1) == want.argmax(-1)).sum())}/{SERVE_BATCH}")
+    require(rel_l2 <= SERVE_REL_L2 and max_abs <= SERVE_MAX_ABS,
+            f"decode vs prefill: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e}")
+    del want, first
+    # the card's busy share: kernel time under the profiler over the wall
+    # time of the same work in the unprofiled run above
+    prefill, decode = serve.make_prefill_fn(plan), serve.make_decode_fn(plan)
+    out = {}
+    prefill_dev = profiled_device_ms(
+        lambda: out.update(cache=prefill(params, {"tokens": prompts})[1]))
+    steps = 3
+    decode_dev = profiled_device_ms(lambda: [
+        decode(params, res.tokens[:, i : i + 1], out["cache"], SERVE_PROMPT + i)
+        for i in range(steps)])
+    mean_decode_ms = sum(decode_ms) / len(decode_ms)
+    for name, dev_ms, wall_ms in (("prefill", prefill_dev, res.prefill_s * 1e3),
+                                  ("decode step", decode_dev and decode_dev / steps,
+                                   mean_decode_ms)):
+        log(f"[serving] {name}: device busy {dev_ms!r} ms of {wall_ms:.2f} ms wall, share "
+            f"{dev_ms and dev_ms / wall_ms!r} (torch.profiler kernel and copy time)")
+    del params, res, out
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
+def phase_timing(dev, workloads, outcomes_path, report) -> None:
+    """Phase 6: each kernel and its plain version at the largest shapes of
+    phases 3-5, the kernel's last timed result held against the plain
+    one; then the bound, and SDPA beside flash_fwd."""
+    import torch
+    import torch.nn.functional as F
+
     from repro_torch.core import policies
     from repro_torch.kernels.sojourn_eval import dynamic as D
     from repro_torch.kernels.sojourn_eval import kernel as K
 
+    j21, (outcomes, weights) = outcomes_path["jobs"], outcomes_path["table"]
     j26, j27 = workloads[26], workloads[27]
     s = 1 << 23
     cases = [
@@ -399,6 +673,10 @@ def phase_timing(dev, workloads, report) -> None:
          D.dynamic_sojourn_mc_torch,
          dynamic_args(j27, [policies.index_table(j27, "sr")], dev, (SEED, s)), 3,
          dynamic_flops(j27, 1, s, mc=True)),
+        ("sojourn_outcomes", "N=21 M=2 K=2^21 enumerated table, P=1 (RANK)",
+         K.sojourn_outcomes, K.sojourn_outcomes_torch,
+         outcomes_args(j21, policies.rank_order(j21)[None], outcomes, weights, dev), 10,
+         outcomes_flops(outcomes, policies.padded_arrays(j21)[2], 1)),
     ]
     for name, shape, fn, plain, args, reps, flops in cases:
         ms, got = cuda_ms(lambda: fn(*args), reps)
@@ -409,6 +687,44 @@ def phase_timing(dev, workloads, report) -> None:
                             bound_by=b_by, reps=reps)
         log(f"[timing] {name} {shape}: {ms:.3f} ms over {reps} run(s), plain {plain_ms:.1f} ms; "
             f"bound {b_ms:.4f} ms ({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
+
+    # flash_fwd at the serving shape: one Qwen3-8B layer's prefill attention
+    shape = (SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, None)
+    b, hq, hkv, sq, skv, d, causal, _ = shape
+    q, k, v = flash_inputs(dev, b, hq, hkv, sq, skv, d, seed=1)
+    t = check_flash(dev, report, shape, time_it=True, qkv=(q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                  enable_gqa=True)
+    cuda_ms(sdpa, 2)  # warm up
+    library_ms, _ = cuda_ms(sdpa, 10)
+    flops = flash_flops(b, hq, sq, skv, d, causal)
+    io_bytes = tensor_bytes((q, k, v)) + q.numel() * q.element_size() + b * hq * sq * 4
+    b_ms, b_by = bound_ms(flops, io_bytes, 0, peak=BF16_FLOPS)
+    report["flash_fwd"].update(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"],
+                               bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=library_ms)
+    log(f"[timing] flash_fwd {shape}: {t['ms']:.3f} ms over 10 runs, plain "
+        f"{t['plain_ms']:.1f} ms, scaled_dot_product_attention {library_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e6:.1f} MB): "
+        f"{b_ms / t['ms']:.2%} of it")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def profiled_device_ms(fn) -> float | None:
+    """Milliseconds of kernels and copies on the card during one call of
+    ``fn``, from ``torch.profiler``; None when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 or None
 
 
 def nvidia_smi() -> str:
@@ -438,17 +754,23 @@ def main() -> int:
     phase_worked_example()
     main_path = phase_main_path()
     phase_cross_check(main_path["workloads"][26])
-    phase_timing(dev, main_path["workloads"], report)
+    outcomes_path = phase_outcomes_path()
+    serving = phase_serving(dev)
+    phase_timing(dev, main_path["workloads"], outcomes_path, report)
     smi = nvidia_smi()
+    launches = {**main_path["launches"], "sojourn_outcomes":
+                outcomes_path["launches"]["sojourn_outcomes"],
+                "flash_fwd": serving["launches"]["flash_fwd"]}
     kernels = []
     for name in REPLACES:
         r = report[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE + SOURCES[name],
-            "replaces": REPLACES[name], "launches": main_path["launches"][name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "max_rel_err": r["max_rel_err"], "shape": r["shape"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
+            **{key: r[key] for key in ("max_rel_err", "max_lse_err") if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
         })

@@ -5,9 +5,11 @@ evaluator.py`` is the counterpart of ``repro/core/evaluator.py``) and
 imports neither JAX nor anything of ``repro``.  Its entry points take
 ``device=None``, which means the CUDA card; ``device="cpu"`` runs the
 plain PyTorch versions of the kernels instead (see
-:mod:`repro_torch.device`).  The fused evaluator's four kernels are CUDA
-C++ for ``sm_90a`` under ``kernels/sojourn_eval/csrc/``, built with
-``nvcc`` at first use.
+:mod:`repro_torch.device`).  The kernels are CUDA C++ for ``sm_90a``
+under ``kernels/<package>/csrc/`` (the fused evaluator's five in
+``sojourn_eval``, the attention forward in ``flash_attention``), built
+with ``nvcc`` at first use.  Beside the evaluator, ``models/`` and
+``launch/serve.py`` serve the dense model family on one card.
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

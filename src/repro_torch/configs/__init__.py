@@ -1,1 +1,2 @@
-"""Experiment configurations of the port (the paper's workloads)."""
+"""Experiment configurations of the port: the paper's workloads and the
+model architectures (``registry``)."""

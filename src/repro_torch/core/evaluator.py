@@ -15,13 +15,18 @@ combination by its probability:
 * Beyond ``MAX_EXACT_COMBOS`` both ops switch to *streaming* Monte Carlo
   via ``samples=(seed, n_samples)``, from a counter-based Threefry stream
   shared by every policy under one seed (common random numbers).
+* The materialized tier, up to ``MAX_MATERIALIZED_COMBOS``: explicit
+  ``outcomes=``/``weights=`` tables from :func:`enumerate_outcomes` or
+  :func:`sample_outcomes`.  Static orders run them through the
+  ``sojourn_outcomes`` kernel; stage-level policies through
+  :func:`_dynamic_batch`, the reference's single-server lockstep
+  simulation in plain PyTorch.  :func:`_static_batch` is the seed path
+  kept as an oracle.
 
 Everything runs in float64, on the CUDA card unless ``device="cpu"`` is
-passed.  Workloads, random orders and the Monte-Carlo seed come from a
-caller-given ``np.random.Generator``, consumed in exactly the reference's
-order, so one seed gives the reference's numbers.  The explicit
-``outcomes=``/``weights=`` tier (the ``sojourn_outcomes`` kernel) is not
-ported yet and raises ``NotImplementedError``.
+passed.  Workloads, random orders, sampled outcomes and the Monte-Carlo
+seed come from a caller-given ``np.random.Generator``, consumed in
+exactly the reference's order, so one seed gives the reference's numbers.
 
 Conventions: a combination with zero successful jobs contributes 0 (the
 paper's Eqs. (7)-(9) sum from l >= 1 successes).
@@ -32,18 +37,21 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import torch
 
 from repro_torch.core import policies
 from repro_torch.core.jobs import Workload
+from repro_torch.device import resolve_device
 from repro_torch.kernels.sojourn_eval import rng as kernel_rng
 from repro_torch.kernels.sojourn_eval import sojourn_eval, sojourn_eval_dynamic
-from repro_torch.kernels.sojourn_eval.ops import OUTCOMES_NOT_PORTED
 from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
 
 __all__ = [
     "MAX_EXACT_COMBOS",
     "MAX_MATERIALIZED_COMBOS",
     "exact_combination_count",
+    "enumerate_outcomes",
+    "sample_outcomes",
     "expected_sojourn_static",
     "expected_sojourn_dynamic",
     "optimal_order",
@@ -76,6 +84,111 @@ def exact_combination_count(jobs: Workload) -> int:
     return _enum_meta(jobs)[0]
 
 
+def enumerate_outcomes(jobs: Workload) -> tuple[np.ndarray, np.ndarray]:
+    """All outcome combinations, materialized.
+
+    Returns ``outcomes`` (K, N) int32, the stage at which each job stops
+    (M_i - 1 == success), and ``weights`` (K,) float64, the probability of
+    each combination.  Only valid up to ``MAX_MATERIALIZED_COMBOS``; the
+    fused evaluator handles larger exact enumerations without a table.
+    """
+    _, probs, _ = policies.padded_arrays(jobs)
+    k_total, strides, num_stages = _enum_meta(jobs)
+    if k_total > MAX_MATERIALIZED_COMBOS:
+        raise ValueError(
+            f"{k_total} combinations exceed MAX_MATERIALIZED_COMBOS; use "
+            "sample_outcomes, or expected_sojourn_static(outcomes=None) "
+            "which enumerates inside the fused kernel"
+        )
+    k = np.arange(k_total, dtype=np.int64)
+    outcomes = ((k[:, None] // strides[None, :]) % num_stages[None, :]).astype(np.int32)
+    weights = np.prod(probs[np.arange(len(jobs))[None, :], outcomes], axis=1, dtype=np.float64)
+    return outcomes, weights
+
+
+def sample_outcomes(
+    jobs: Workload, n_samples: int, rng: np.random.Generator
+) -> tuple[np.ndarray, np.ndarray]:
+    """Monte-Carlo outcomes by inverse-CDF sampling of one (S, N) block of
+    ``rng.random``; weights are uniform 1/S."""
+    _, probs, num_stages = policies.padded_arrays(jobs)
+    cdf = np.cumsum(probs, axis=1)  # (N, M); padded stages add 0 mass
+    u = rng.random((n_samples, len(jobs)))
+    outcomes = np.sum(u[:, :, None] >= cdf[None, :, :], axis=2)
+    outcomes = np.minimum(outcomes, num_stages[None, :] - 1).astype(np.int32)
+    weights = np.full((n_samples,), 1.0 / n_samples)
+    return outcomes, weights
+
+
+def _realized_arrays(jobs: Workload, outcomes: np.ndarray):
+    """Per-combination realized durations (K, N) and success masks (K, N)."""
+    sizes, _, num_stages = policies.padded_arrays(jobs)
+    durations = sizes[np.arange(len(jobs)), outcomes]
+    success = outcomes == (num_stages[None, :] - 1)
+    return durations, success
+
+
+def _static_batch(durations, success, weights, orders, also_all_jobs=False):
+    """Seed path: E[sojourn of successful jobs] per order, dense.
+
+    Kept as the oracle of the fused op.  ``durations`` (K, N) realized
+    total service, ``success`` (K, N) bool, ``weights`` (K,), ``orders``
+    (P, N): torch tensors on one device.  Returns (P,) float64, or
+    ``(e_succ, e_all)`` with ``also_all_jobs``.
+    """
+    e_succ, e_all = [], []
+    for order in orders.to(torch.int64):
+        t = torch.cumsum(durations[:, order], dim=1)  # completion times
+        s = success[:, order]
+        cnt = s.sum(dim=1)
+        tot = (t * s).sum(dim=1)
+        mean_succ = torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)
+        e_succ.append(weights @ mean_succ)
+        e_all.append(weights @ t.mean(dim=1))
+    if also_all_jobs:
+        return torch.stack(e_succ), torch.stack(e_all)
+    return torch.stack(e_succ)
+
+
+def _dynamic_batch(idx_table, stage_durs, outcomes, success, weights, total_stages: int):
+    """Simulate a stage-level index policy on one server for every row of
+    an outcome table; the materialized tier of :func:`expected_sojourn_dynamic`.
+
+    The reference's lockstep loop with the combinations as a batch axis:
+    ``total_stages`` steps, each serving the alive job of least index
+    (``argmin``: ties to the lowest position) for one stage.  Indices
+    clamp as JAX's gathers do, so a row whose alive jobs all have index
+    ``+inf`` behaves as in the reference (ROADMAP fault R2).
+
+    idx_table, stage_durs (N, M) float64; outcomes (K, N) int; success
+    (K, N) bool; weights (K,) float64: torch tensors on one device.
+    """
+    k, n = outcomes.shape
+    m = idx_table.shape[1]
+    dev = outcomes.device
+    rows = torch.arange(k, device=dev)
+    jobs = torch.arange(n, device=dev)[None, :]
+    outcomes = outcomes.to(torch.int64)
+    stage = torch.zeros((k, n), dtype=torch.int64, device=dev)
+    clock = torch.zeros(k, dtype=torch.float64, device=dev)
+    tdone = torch.zeros((k, n), dtype=torch.float64, device=dev)
+    done = torch.zeros((k, n), dtype=torch.bool, device=dev)
+    for _ in range(total_stages):
+        alive = ~done
+        idx = torch.where(alive, idx_table[jobs, stage.clamp(max=m - 1)], torch.inf)
+        any_alive = alive.any(dim=1)
+        j = torch.argmin(idx, dim=1)
+        sj = stage[rows, j]
+        clock = clock + torch.where(any_alive, stage_durs[j, sj.clamp(max=m - 1)], 0.0)
+        newly_done = any_alive & (sj >= outcomes[rows, j])
+        stage[rows, j] = sj + any_alive.to(torch.int64)
+        tdone[rows, j] = torch.where(newly_done, clock, tdone[rows, j])
+        done[rows, j] |= newly_done
+    cnt = success.sum(dim=1)
+    tot = (tdone * success).sum(dim=1)
+    return weights @ torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)
+
+
 def _check_exact(jobs: Workload) -> None:
     k_total = exact_combination_count(jobs)
     if k_total > MAX_EXACT_COMBOS:
@@ -97,23 +210,24 @@ def expected_sojourn_static(
     """Expected sojourn of successful jobs for static order(s), fused.
 
     ``orders`` may be (N,) for a single order or (P, N) for a batch.
-    With ``samples=None`` the evaluation is exact: all ``prod(M_i)``
-    combinations are enumerated inside the kernel (up to
-    ``MAX_EXACT_COMBOS``).  ``samples=(seed, n_samples)`` runs streaming
-    Monte Carlo.  Returns a float for one order, a (P,) array for a
-    batch, and ``(e_succ, e_all)`` with ``also_all_jobs``.
+    With ``outcomes=None`` and ``samples=None`` the evaluation is exact:
+    all ``prod(M_i)`` combinations are enumerated inside the kernel (up
+    to ``MAX_EXACT_COMBOS``).  Explicit ``outcomes``/``weights`` (samples
+    or a shared exact table) go through the ``sojourn_outcomes`` kernel;
+    ``samples=(seed, n_samples)`` runs streaming Monte Carlo.  Returns a
+    float for one order, a (P,) array for a batch, and ``(e_succ,
+    e_all)`` with ``also_all_jobs``.
     """
-    if outcomes is not None or weights is not None:
-        raise NotImplementedError(OUTCOMES_NOT_PORTED)
     orders = np.asarray(orders, dtype=np.int32)
     single = orders.ndim == 1
     if single:
         orders = orders[None]
     sizes, probs, num_stages = policies.padded_arrays(jobs)
-    if samples is None:
+    if samples is None and outcomes is None:
         _check_exact(jobs)
     e_succ, e_all = sojourn_eval(
-        sizes, probs, num_stages, orders, samples=samples, device=device
+        sizes, probs, num_stages, orders, outcomes=outcomes, weights=weights,
+        samples=samples, device=device,
     )
     if also_all_jobs:
         return (e_succ[0], e_all[0]) if single else (e_succ, e_all)
@@ -135,20 +249,37 @@ def expected_sojourn_dynamic(
     combinations are decoded and simulated inside the fused dynamic
     kernel (up to ``MAX_EXACT_COMBOS``).  ``samples=(seed, n_samples)``
     runs streaming Monte Carlo from the stream shared with the static op.
-    ``n_servers=W`` evaluates the paper's multi-server setting.
+    ``n_servers=W`` evaluates the paper's multi-server setting.  Explicit
+    ``outcomes``/``weights`` run :func:`_dynamic_batch` on one server
+    (``n_servers > 1`` raises there).
     """
-    if outcomes is not None or weights is not None:
-        raise NotImplementedError(OUTCOMES_NOT_PORTED)
     _, probs, num_stages = policies.padded_arrays(jobs)
     idx_table = policies.index_table(jobs, policy)
     stage_durs = policies.stage_durations(jobs)
-    if samples is None:
-        _check_exact(jobs)
-    e_succ, _ = sojourn_eval_dynamic(
-        probs, stage_durs, num_stages, idx_table,
-        samples=samples, n_servers=n_servers, device=device,
+    if samples is not None or outcomes is None:
+        if samples is None:
+            _check_exact(jobs)
+        e_succ, _ = sojourn_eval_dynamic(
+            probs, stage_durs, num_stages, idx_table,
+            samples=samples, n_servers=n_servers, device=device,
+        )
+        return float(e_succ[0])
+    if n_servers != 1:
+        raise ValueError(
+            "the materialized outcomes/weights tier is single-server; "
+            "use the fused path (outcomes=None or samples=) for n_servers > 1"
+        )
+    dev = resolve_device(device)
+    _, success = _realized_arrays(jobs, outcomes)
+    val = _dynamic_batch(
+        torch.tensor(idx_table, dtype=torch.float64, device=dev),
+        torch.tensor(stage_durs, dtype=torch.float64, device=dev),
+        torch.as_tensor(np.asarray(outcomes), device=dev),
+        torch.as_tensor(success, device=dev),
+        torch.as_tensor(np.asarray(weights, dtype=np.float64), device=dev),
+        int(num_stages.sum()),
     )
-    return float(e_succ[0])
+    return float(val)
 
 
 def optimal_order(

@@ -1,22 +1,27 @@
-"""Build the CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the CUDA sources of every kernel package with ``nvcc`` and load
+them with ``ctypes``.
 
-Every ``csrc/*.cu`` becomes its own shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+Each package under ``repro_torch/kernels/`` that has kernels keeps them in
+its own ``csrc/`` (listed in :data:`PACKAGES`).  Every ``csrc/*.cu``
+becomes its own shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds, not minutes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas=-v -o lib<stem>-<digest>.so csrc/<stem>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o lib<stem>-<digest>.so <package>/csrc/<stem>.cu
 
 The libraries go to ``src/repro_torch/kernels/_build/`` (listed in
 ``.gitignore``) at first use.  One ``nvcc`` runs per source, all started
-together.  ``<digest>`` hashes the flags and every file under ``csrc/``,
-so an edited source is rebuilt and an unchanged one is reused.  The
-compiler's output (``-Xptxas=-v``: registers, shared memory, spills) is
-kept beside each library as ``<stem>-<digest>.log``.
+together, across packages.  ``<digest>`` hashes the flags and every file
+of the package's ``csrc/``, so an edited source is rebuilt and an
+unchanged one is reused.  The compiler's output (``-Xptxas=-v``:
+registers, shared memory, spills) is kept beside each library as
+``<stem>-<digest>.log``.  Stems are unique across packages.
 
 If ``nvcc`` is missing or fails, :func:`library` raises: there is no
 fallback.  The wrappers pass every pointer and the stream as
-``c_void_p``, and each entry point returns ``cudaGetLastError()``, which
-:func:`check` turns into an exception.
+``c_void_p``; each entry point returns ``cudaGetLastError()``, which
+:func:`check` turns into an exception through the library's
+``kernel_error_string``.
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "build_all", "library", "check"]
+__all__ = ["BUILD_DIR", "PACKAGES", "build_all", "library", "check"]
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS / "_build"
+#: Kernel packages whose ``csrc/*.cu`` are built.
+PACKAGES = ("sojourn_eval", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -55,12 +62,28 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
+def _csrc(package: str) -> Path:
+    return KERNELS / package / "csrc"
+
+
+def _digest(package: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(_csrc(package).iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _sources() -> dict[str, tuple[Path, str]]:
+    """``{stem: (source, digest)}`` for every ``.cu`` of every package."""
+    out = {}
+    for package in PACKAGES:
+        digest = _digest(package)
+        for src in sorted(_csrc(package).glob("*.cu")):
+            if src.stem in out:
+                raise RuntimeError(f"two kernel sources are named {src.stem}.cu")
+            out[src.stem] = (src, digest)
+    return out
 
 
 def _target(stem: str, digest: str) -> Path:
@@ -68,28 +91,30 @@ def _target(stem: str, digest: str) -> Path:
 
 
 def build_all() -> dict[str, str]:
-    """Compile every ``csrc/*.cu`` that is not built yet, in parallel.
+    """Compile every ``csrc/*.cu`` of every package that is not built yet,
+    in parallel.
 
     Returns ``{stem: compiler output}`` for all sources (read from the
     kept logs for those already built).  Raises ``RuntimeError`` with
     the compiler's output when a build fails.
     """
-    digest = _digest()
+    sources = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stems = sorted(p.stem for p in CSRC.glob("*.cu"))
-    todo = [s for s in stems if not _target(s, digest).exists()]
+    todo = [s for s, (_, d) in sources.items() if not _target(s, d).exists()]
     procs = {}
     if todo:
         nvcc = _nvcc()
         for stem in todo:
+            src, digest = sources[stem]
             tmp = BUILD_DIR / f".tmp-{os.getpid()}-lib{stem}-{digest}.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
             procs[stem] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))
     failed = []
     for stem, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
+        digest = sources[stem][1]
         (BUILD_DIR / f"{stem}-{digest}.log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"== nvcc {stem}.cu (exit {proc.returncode}) ==\n{out}")
@@ -99,14 +124,14 @@ def build_all() -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     logs = {}
-    for stem in stems:
+    for stem, (_, digest) in sources.items():
         log = BUILD_DIR / f"{stem}-{digest}.log"
         logs[stem] = log.read_text() if log.exists() else ""
     return logs
 
 
 def library(stem: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built on first use.
+    """The loaded library of ``<package>/csrc/<stem>.cu``, built on first use.
 
     ``signatures`` maps each C entry point to its ``argtypes``; every
     entry point returns an ``int`` CUDA error code.
@@ -115,13 +140,16 @@ def library(stem: str, signatures: dict[str, list]) -> ctypes.CDLL:
         lib = _libs.get(stem)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(str(_target(stem, _digest())))
+            sources = _sources()
+            if stem not in sources:
+                raise ValueError(f"no kernel source {stem}.cu in {PACKAGES}")
+            lib = ctypes.CDLL(str(_target(stem, sources[stem][1])))
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.sojourn_error_string.argtypes = [ctypes.c_int]
-            lib.sojourn_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[stem] = lib
         return lib
 
@@ -129,5 +157,5 @@ def library(stem: str, signatures: dict[str, list]) -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code other than 0."""
     if code != 0:
-        msg = lib.sojourn_error_string(code).decode()
+        msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

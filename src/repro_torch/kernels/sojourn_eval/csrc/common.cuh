@@ -106,6 +106,6 @@ inline int finish_launch(const double* partials, int nblk, int n_orders,
 
 }  // namespace sojourn
 
-extern "C" const char* sojourn_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

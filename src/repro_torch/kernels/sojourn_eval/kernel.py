@@ -1,18 +1,17 @@
 """Static-order sojourn kernels: wrappers, launch counts and plain versions.
 
-``sojourn_enum`` and ``sojourn_mc`` replace the TPU kernels of the same
-names in ``repro/kernels/sojourn_eval/kernel.py``; their CUDA source is
-``csrc/sojourn_static.cu`` (design note there).  Both take per-order
-inputs whose job axis is pre-permuted by the caller (``ops.py``), so
-position ``pos`` is service position, and return
+``sojourn_enum``, ``sojourn_mc`` and ``sojourn_outcomes`` replace the TPU
+kernels of the same names in ``repro/kernels/sojourn_eval/kernel.py``;
+their CUDA source is ``csrc/sojourn_static.cu`` (design notes there).
+All take per-order inputs whose job axis is pre-permuted by the caller
+(``ops.py``), so position ``pos`` is service position, and return
 ``(E[sojourn | successful], E[sojourn | all])`` per order as float64
 tensors on the inputs' device.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a
-CPU tensor runs the plain PyTorch version, ``sojourn_enum_torch`` /
-``sojourn_mc_torch``, which tile the index range as the ``lax.scan``
-paths of the JAX package do.  ``launches`` counts kernel launches and
-nothing else.
+CPU tensor runs the plain PyTorch version (``*_torch``), which tiles the
+index range as the ``lax.scan`` paths of the JAX package do.
+``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -21,15 +20,18 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.sojourn_eval import _build, rng
+from repro_torch.kernels import _build
+from repro_torch.kernels.sojourn_eval import rng
 
 __all__ = [
     "THREADS",
     "launches",
     "sojourn_enum",
     "sojourn_mc",
+    "sojourn_outcomes",
     "sojourn_enum_torch",
     "sojourn_mc_torch",
+    "sojourn_outcomes_torch",
 ]
 
 #: Threads per block of the main kernels (``kThreads`` in csrc/common.cuh).
@@ -41,7 +43,9 @@ MAX_COUNT = (1 << 31) - 1
 #: Soft cap on bytes of per-tile intermediates in the plain versions.
 PLAIN_TILE_BYTES = 256 << 20
 #: Kernel launches per wrapper since the last reset (set to 0 to reset).
-launches = {"sojourn_enum": 0, "sojourn_mc": 0}
+launches = {"sojourn_enum": 0, "sojourn_mc": 0, "sojourn_outcomes": 0}
+#: Orders a ``sojourn_outcomes`` block evaluates (``kOutChunk`` in the source).
+OUTCOMES_CHUNK = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +54,7 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "sojourn_enum_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
     "sojourn_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _P, _P, _P],
+    "sojourn_outcomes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
 }
 
 
@@ -83,14 +88,15 @@ def blocks_per_order(count: int, n_orders: int) -> int:
     return max(1, min(-(-count // THREADS), -(-TARGET_BLOCKS // n_orders)))
 
 
-def launch(stem, signatures, entry, device, n_orders, count, args) -> tuple:
+def launch(stem, signatures, entry, device, n_orders, count, args, rows=None) -> tuple:
     """Allocate the partials and the output on ``device``, call the C
     entry point ``entry`` on the current stream, raise on a CUDA error
-    and return ``(e_succ, e_all)``.  No synchronisation."""
+    and return ``(e_succ, e_all)``.  No synchronisation.  ``rows`` is the
+    number of grid rows sharing the blocks (default: one per order)."""
     if device.type != "cuda":
         raise ValueError(f"{entry} launches on a CUDA device; got {device}")
     lib = _build.library(stem, signatures)
-    nblk = blocks_per_order(count, n_orders)
+    nblk = blocks_per_order(count, rows or n_orders)
     with torch.cuda.device(device):
         partials = torch.empty((n_orders, nblk, 2), dtype=torch.float64, device=device)
         out = torch.empty((2, n_orders), dtype=torch.float64, device=device)
@@ -227,4 +233,57 @@ def sojourn_mc(
          p_orders, n, m, n_samples, k0, k1),
     )
     launches["sojourn_mc"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Explicit outcome tables
+# ---------------------------------------------------------------------------
+
+
+def sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes_t, weights):
+    """Plain version of :func:`sojourn_outcomes` on any device."""
+    p_orders, n, _ = sizes_p.shape
+    k_total = weights.shape[0]
+    radix = radix_p.to(torch.int64)[None]
+    orders = orders.to(torch.int64)
+    e_succ = torch.zeros(p_orders, dtype=torch.float64, device=sizes_p.device)
+    e_all = torch.zeros(p_orders, dtype=torch.float64, device=sizes_p.device)
+    tile = _plain_tile(p_orders * n)
+    for lo in range(0, k_total, tile):
+        hi = min(lo + tile, k_total)
+        s = outcomes_t[:, lo:hi].T.to(torch.int64)[:, orders]  # (T, P, N) service order
+        w = weights[lo:hi, None].expand(-1, p_orders)
+        _accumulate(_permuted_gather(sizes_p, s), s == radix - 1, w, e_succ, e_all)
+    return e_succ, e_all
+
+
+def sojourn_outcomes(
+    sizes_p: torch.Tensor,  # (P, N, M) float64 per-order permuted cumulative sizes
+    radix_p: torch.Tensor,  # (P, N) int32 permuted stage counts
+    orders: torch.Tensor,  # (P, N) int32 original job ids by position
+    outcomes_t: torch.Tensor,  # (N, K) int32 stop stages, job-major, in [0, M_i)
+    weights: torch.Tensor,  # (K,) float64 combination weights
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E[sojourn successful], E[sojourn all]) per order over an explicit
+    outcome table, fused: the table is read once per chunk of
+    ``OUTCOMES_CHUNK`` orders."""
+    p_orders, n, m = sizes_p.shape
+    dev = sizes_p.device
+    k_total = weights.shape[0] if isinstance(weights, torch.Tensor) else -1
+    check_tensor("sizes_p", sizes_p, torch.float64, (p_orders, n, m), dev)
+    check_tensor("radix_p", radix_p, torch.int32, (p_orders, n), dev)
+    check_tensor("orders", orders, torch.int32, (p_orders, n), dev)
+    check_tensor("weights", weights, torch.float64, (k_total,), dev)
+    check_tensor("outcomes_t", outcomes_t, torch.int32, (n, k_total), dev)
+    check_count("K", k_total)
+    if dev.type == "cpu":
+        return sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes_t, weights)
+    out = launch(
+        "sojourn_static", _SIGNATURES, "sojourn_outcomes_launch", dev, p_orders, k_total,
+        (sizes_p.data_ptr(), radix_p.data_ptr(), orders.data_ptr(), outcomes_t.data_ptr(),
+         weights.data_ptr(), p_orders, n, m, k_total),
+        rows=-(-p_orders // OUTCOMES_CHUNK),
+    )
+    launches["sojourn_outcomes"] += 1
     return out

@@ -12,13 +12,16 @@ versions.  Entry modes:
 * ``sojourn_eval(..., samples=(seed, n_samples))`` — *streaming Monte
   Carlo* from the counter-based Threefry stream, keyed by original job
   id, so every order under one seed sees identical outcomes.
-* ``outcomes=`` / ``weights=`` (explicit outcome tables) belong to the
-  ``sojourn_outcomes`` kernel, which this package does not carry yet:
-  they raise ``NotImplementedError``.
+* ``sojourn_eval(..., outcomes=, weights=)`` — *explicit outcomes*:
+  Monte-Carlo samples or a shared exact table, ``(K, N)`` stop stages in
+  original job indexing, through the ``sojourn_outcomes`` kernel.  The
+  table goes to the device once, job-major (``(N, K)``, see
+  :func:`outcome_tables`), and every order batch reads it there.
 
 Orders are evaluated in batches of the reference's size
 (:func:`_order_batch`, at most 4096), each batch one launch; the inputs'
-job axis is permuted on the host per order (:func:`static_kernel_args`).
+job axis is permuted on the host per order (:func:`static_kernel_args`,
+:func:`outcomes_kernel_args`).
 """
 
 from __future__ import annotations
@@ -31,7 +34,13 @@ from repro_torch.kernels.sojourn_eval import kernel as K
 from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
 from repro_torch.obs import profiling
 
-__all__ = ["sojourn_eval", "static_kernel_args", "permuted_inputs", "OUTCOMES_NOT_PORTED"]
+__all__ = [
+    "sojourn_eval",
+    "static_kernel_args",
+    "outcome_tables",
+    "outcomes_kernel_args",
+    "permuted_inputs",
+]
 
 #: Combination indices per tile of the reference's XLA scan (batch sizing).
 XLA_TILE = 1 << 15
@@ -39,8 +48,6 @@ XLA_TILE = 1 << 15
 BLOCK_COMBOS = 8 * 128
 #: Soft cap on bytes of per-tile intermediates (the reference's batch rule).
 _TILE_BYTES_BUDGET = 256 << 20
-
-OUTCOMES_NOT_PORTED = "explicit outcome tables: sojourn_outcomes, port slice 2"
 
 
 def _order_batch(n_orders: int, tile: int, n: int) -> int:
@@ -78,11 +85,15 @@ def sojourn_eval(
     copy of the results to NumPy waits for the card, so the span is end
     to end).
     """
-    if outcomes is not None or weights is not None:
-        raise NotImplementedError(OUTCOMES_NOT_PORTED)
+    if samples is not None and outcomes is not None:
+        raise ValueError("samples= and outcomes= are mutually exclusive")
+    if (outcomes is None) != (weights is None):
+        raise ValueError("explicit outcomes need weights, and weights need outcomes")
     dev = resolve_device(device)
-    mode = "mc" if samples is not None else "enum"
+    mode = "mc" if samples is not None else ("enum" if outcomes is None else "outcomes")
     with profiling.span(f"sojourn_eval.static.{mode}.{dev.type}"):
+        if outcomes is not None:
+            return _outcomes_eval(sizes, num_stages, orders, outcomes, weights, dev)
         return _sojourn_eval(sizes, probs, num_stages, orders, samples, dev)
 
 
@@ -105,12 +116,59 @@ def static_kernel_args(sizes, probs, num_stages, orders_b, device, samples=None)
     return (*tensors, int(np.prod(num_stages, dtype=np.int64)))
 
 
-def _sojourn_eval(sizes, probs, num_stages, orders, samples, dev):
+def outcome_tables(outcomes, weights, num_stages, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The explicit table as :func:`kernel.sojourn_outcomes` reads it:
+    ``(N, K)`` int32 job-major outcomes and ``(K,)`` float64 weights on
+    ``device``.  Raises unless every outcome lies in ``[0, M_i)``."""
     num_stages = np.asarray(num_stages, dtype=np.int64)
-    orders = np.asarray(orders, dtype=np.int32)
+    outcomes = np.asarray(outcomes)
+    weights = np.asarray(weights, dtype=np.float64)
     n = num_stages.shape[0]
+    if outcomes.ndim != 2 or outcomes.shape[1] != n:
+        raise ValueError(f"outcomes must be (K, {n}); got {outcomes.shape}")
+    if weights.shape != (outcomes.shape[0],):
+        raise ValueError(f"weights must be ({outcomes.shape[0]},); got {weights.shape}")
+    if outcomes.size and (outcomes.min() < 0 or np.any(outcomes >= num_stages[None, :])):
+        raise ValueError("every outcome must be a stage index in [0, M_i)")
+    table = torch.as_tensor(np.ascontiguousarray(outcomes.T, dtype=np.int32), device=device)
+    return table, torch.as_tensor(weights, device=device)
+
+
+def outcomes_kernel_args(sizes, num_stages, orders_b, tables, device) -> tuple:
+    """Positional arguments of :func:`kernel.sojourn_outcomes` for one batch
+    of orders ``orders_b`` (P, N), with ``tables`` from :func:`outcome_tables`."""
+    sizes = np.asarray(sizes, dtype=np.float64)
+    radix = np.asarray(num_stages, dtype=np.int32)
+    orders_b = np.asarray(orders_b, dtype=np.int32)
+    job_ids = np.arange(sizes.shape[0], dtype=np.int32)
+    return (*permuted_inputs([sizes, radix, job_ids], orders_b, device), *tables)
+
+
+def _check_orders(orders, n: int) -> np.ndarray:
+    orders = np.asarray(orders, dtype=np.int32)
     if orders.ndim != 2 or orders.shape[1] != n:
         raise ValueError(f"orders must be (P, {n}); got {orders.shape}")
+    return orders
+
+
+def _outcomes_eval(sizes, num_stages, orders, outcomes, weights, dev):
+    orders = _check_orders(orders, len(num_stages))
+    tables = outcome_tables(outcomes, weights, num_stages, dev)
+    pb = _order_batch(orders.shape[0], tables[1].shape[0], len(num_stages))
+    parts = [
+        K.sojourn_outcomes(*outcomes_kernel_args(sizes, num_stages, orders[lo : lo + pb],
+                                                 tables, dev))
+        for lo in range(0, orders.shape[0], pb)
+    ]
+    e_succ = torch.cat([p[0] for p in parts]).cpu().numpy()
+    e_all = torch.cat([p[1] for p in parts]).cpu().numpy()
+    return e_succ, e_all
+
+
+def _sojourn_eval(sizes, probs, num_stages, orders, samples, dev):
+    num_stages = np.asarray(num_stages, dtype=np.int64)
+    n = num_stages.shape[0]
+    orders = _check_orders(orders, n)
     if samples is not None:
         count = int(samples[1])
         if count <= 0:

@@ -1,0 +1,151 @@
+"""Serving on one device: prefill and decode step factories, greedy
+generation, and the ``python -m repro_torch.launch.serve`` entry point.
+
+The counterpart of ``repro/launch/serve.py`` and
+``examples/serve_batch.py``.  ``make_prefill_fn(plan)`` gives
+``(params, batch) -> (logits, cache)``: the prompt's float32 logits over
+the padded vocabulary and the serving cache.  ``make_decode_fn(plan)``
+gives ``(params, token, cache, pos) -> (logits, cache)``: one new token
+against the cache, which it updates IN PLACE (the reference donates the
+cache to get the same effect).  There is no mesh: one device holds the
+weights and the cache (sharding is ROADMAP Queue 1 item 8).
+
+Command line (random weights from ``--seed``; the real weights are not
+in the repository)::
+
+    python -m repro_torch.launch.serve                      # qwen3-8b on the card
+    python -m repro_torch.launch.serve --smoke --device cpu # its SMOKE config
+
+At ``--arch qwen3-8b`` the defaults are 4 requests of 2048 prompt tokens
+and 32 new tokens each (the first from the prefill, 31 decode steps).
+The prefill's logits alone are B x S x 152,064 float32: 5.0 GB there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.registry import get_config, get_smoke
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.init import tree_bytes
+
+__all__ = ["ServePlan", "Generation", "make_prefill_fn", "make_decode_fn", "generate", "main"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    cfg: ModelConfig
+    max_len: int  # cache length: prompt + new tokens
+    device: torch.device
+
+
+def make_prefill_fn(plan: ServePlan) -> Callable:
+    cfg = plan.cfg
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        return T.prefill(params, batch, cfg, max_len=plan.max_len)
+
+    return prefill_step
+
+
+def make_decode_fn(plan: ServePlan) -> Callable:
+    cfg = plan.cfg
+
+    @torch.inference_mode()
+    def decode(params, token, cache, pos: int):
+        return T.decode_step(params, token, cache, pos, cfg)
+
+    return decode
+
+
+@dataclasses.dataclass
+class Generation:
+    tokens: torch.Tensor  # (B, gen_len) greedy tokens, the first from the prefill
+    first_decode_logits: torch.Tensor | None  # (B, V) float32 of decode step 1
+    prefill_s: float  # wall seconds of the prefill, device work included
+    decode_s: list  # wall seconds of each decode step
+    cache_bytes: int
+    logits_bytes: int  # of the prefill's logits
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(plan: ServePlan, params: dict, prompts: torch.Tensor, gen_len: int) -> Generation:
+    """Prefill ``prompts`` (B, S) and decode greedily: ``gen_len`` new
+    tokens per request, the first from the prefill's last logits and the
+    rest from ``gen_len - 1`` decode steps.  Times are host wall clock
+    around work that ends in a device synchronisation."""
+    cfg, dev = plan.cfg, plan.device
+    b, s = prompts.shape
+    if s + gen_len > plan.max_len:
+        raise ValueError(f"prompt {s} + {gen_len} new tokens exceed max_len {plan.max_len}")
+    prefill, decode = make_prefill_fn(plan), make_decode_fn(plan)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    logits_bytes = logits.numel() * logits.element_size()
+    del logits
+    out, decode_s, first = [tok], [], None
+    for pos in range(s, s + gen_len - 1):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, tok, cache, pos)
+        tok = lg[:, 0, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
+        _sync(dev)
+        decode_s.append(time.perf_counter() - t0)
+        if first is None:
+            first = lg[:, 0].clone()
+        out.append(tok)
+    return Generation(torch.cat(out, dim=1), first, prefill_s, decode_s,
+                      tree_bytes(cache), logits_bytes)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--smoke", action="store_true", help="the arch's reduced SMOKE config")
+    ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' for plain torch")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=None, help="default 2048 (16 with --smoke)")
+    ap.add_argument("--gen-len", type=int, default=None, help="new tokens; default 32 (8 with --smoke)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    prompt_len = args.prompt_len or (16 if args.smoke else 2048)
+    gen_len = args.gen_len or (8 if args.smoke else 32)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, prompt_len), generator=gen,
+                            device=dev)
+    plan = ServePlan(cfg=cfg, max_len=prompt_len + gen_len, device=dev)
+    res = generate(plan, params, prompts, gen_len)
+
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    steps = len(res.decode_s)
+    print(f"model {cfg.name} on {name}: batch={args.batch} prompt={prompt_len} new={gen_len}")
+    print(f"weights {tree_bytes(params) / 1e9:.4g} GB, cache {res.cache_bytes / 1e9:.4g} GB, "
+          f"prefill logits {res.logits_bytes / 1e9:.4g} GB")
+    print(f"prefill: {res.prefill_s * 1e3:.1f} ms   decode: "
+          f"{sum(res.decode_s) / max(steps, 1) * 1e3:.2f} ms/token over {steps} steps")
+    for i in range(args.batch):
+        print(f"  req{i}: {res.tokens[i, :12].tolist()} ...")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,111 @@
+"""GQA self-attention: full-sequence (prefill) and one-token decode.
+
+The counterpart of ``repro/models/attention.py`` for the dense family on
+one device.  Prefill attention goes through the ``flash_fwd`` kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention`); decode
+attends one new token over the KV cache with the plain
+:func:`~repro_torch.kernels.flash_attention.ref.ref_attention`, as the
+reference's ``attn_decode`` does.  Cross attention and the
+sequence-parallel decode come with their slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import ref_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.init import ParamSpec
+from repro_torch.models.layers import rms_norm, rope
+
+__all__ = ["attn_specs", "attn_apply", "attn_decode"]
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    specs = {
+        "wq": ParamSpec((d, hq, hd), ("embed", "q_heads", "head_dim"), dtype=cfg.pdtype),
+        "wk": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim"), dtype=cfg.pdtype),
+        "wv": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim"), dtype=cfg.pdtype),
+        "wo": ParamSpec((hq, hd, d), ("q_heads", "head_dim", "embed"), dtype=cfg.pdtype),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((hd,), (None,), init="ones", dtype=torch.float32)
+        specs["k_norm"] = ParamSpec((hd,), (None,), init="ones", dtype=torch.float32)
+    return specs
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _project_q(p, x, cfg: ModelConfig, positions):
+    q = _heads(x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta)
+
+
+def _project_kv(p, x, cfg: ModelConfig, positions):
+    k = _heads(x, p["wk"])
+    v = _heads(x, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return rope(k, positions, cfg.rope_theta), v
+
+
+def _out_proj(p, o):
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    h, k, d = p["wo"].shape
+    return o.reshape(*o.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+
+
+def attn_apply(
+    p: dict,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    positions: torch.Tensor,  # (B, S)
+    *,
+    window: int | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence causal self attention (prefill); returns ``(out, (k,
+    v))``, the projected keys and values being what the serving cache
+    holds."""
+    q = _project_q(p, x, cfg, positions)
+    k, v = _project_kv(p, x, cfg, positions)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    return _out_proj(p, o), (k, v)
+
+
+def attn_decode(
+    p: dict,
+    x: torch.Tensor,  # (B, 1, D)
+    k_cache: torch.Tensor,  # (B, S_max, Hkv, hd)
+    v_cache: torch.Tensor,
+    pos: int,  # index of the new token
+    cfg: ModelConfig,
+    *,
+    ring: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention; returns ``(out, k_cache, v_cache)``.
+
+    The caches are updated IN PLACE (the new token's K/V written at its
+    slot) and returned, where the reference returns updated copies.
+    ``ring=True`` treats the cache as a sliding-window ring buffer of
+    width S_max.
+    """
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
+    q = _project_q(p, x, cfg, positions)
+    k_new, v_new = _project_kv(p, x, cfg, positions)
+    s_max = k_cache.shape[1]
+    slot = pos % s_max if ring else min(pos, s_max - 1)
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    # ring buffers hold a rotation of the window; softmax attention does not
+    # depend on the order of the keys.
+    o = ref_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
+                      kv_len=min(pos + 1, s_max))
+    return _out_proj(p, o), k_cache, v_cache

@@ -1,0 +1,140 @@
+"""Port parity of the attention kernel's plain version and the oracles.
+
+The same inputs, made with NumPy from a seed, go through the JAX
+package's Pallas ``flash_fwd`` in interpret mode (with the port's
+64 x 64 tiles, so that block skipping and the NEG_INF conventions line
+up even on rows that see no key) and through the port's
+``flash_fwd_torch``, which is what a CPU tensor runs.  float32: O and
+LSE agree to 1e-5 (sums in another order).  bfloat16: P and O are
+rounded to bf16 at the same places on both sides, so O agrees to one
+bf16 ulp at |O| <= 1 (2**-7 absolute, a rounding that lands on the
+other side of a tie-break after float32 sums in another order) and LSE,
+kept in float32, to 1e-5.  The CUDA kernel is held against the plain
+version on the card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as ref_kernel
+from repro.kernels.flash_attention import ref as ref_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ref
+
+RTOL = 1e-5
+
+
+def _qkv(b, hq, hkv, sq, skv, d, seed, layout="bhsd"):
+    rng = np.random.default_rng(seed)
+    if layout == "bhsd":
+        shapes = [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)]
+    else:
+        shapes = [(b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)]
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _reference(q, k, v, causal, window, dtype=jnp.float32):
+    o, lse = ref_kernel.flash_fwd(
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+        scale=q.shape[-1] ** -0.5, causal=causal, window=window,
+        block_q=K.BLOCK_Q, block_k=K.BLOCK_K, interpret=True,
+    )
+    return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
+
+
+def _port(q, k, v, causal, window, dtype=torch.float32):
+    o, lse = K.flash_fwd(*(torch.tensor(a).to(dtype) for a in (q, k, v)),
+                         scale=q.shape[-1] ** -0.5, causal=causal, window=window)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    return o.float().numpy(), lse.numpy()
+
+
+CASES = [
+    # hq, hkv, sq, skv, causal, window
+    pytest.param(4, 4, 128, 128, True, None, id="causal-g1"),
+    pytest.param(4, 2, 128, 128, True, None, id="causal-g2"),
+    pytest.param(8, 2, 128, 128, True, None, id="causal-g4"),
+    pytest.param(4, 2, 192, 192, True, 40, id="causal-window-g2"),
+    pytest.param(4, 1, 64, 192, False, None, id="noncausal-sq<skv-g4"),
+    pytest.param(4, 2, 192, 64, False, None, id="noncausal-sq>skv-g2"),
+    pytest.param(4, 4, 128, 128, False, 48, id="window-only-g1"),
+    # rows i >= 96 see no key: the NEG_INF / 1e-30 conventions decide them
+    pytest.param(2, 1, 192, 64, False, 32, id="rows-without-keys"),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window", CASES)
+def test_plain_matches_reference_kernel_f32(hq, hkv, sq, skv, causal, window):
+    q, k, v = _qkv(1, hq, hkv, sq, skv, 16, seed=hq * sq + skv)
+    got, want = _port(q, k, v, causal, window), _reference(q, k, v, causal, window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window", CASES[1:4])
+def test_plain_matches_reference_kernel_bf16(hq, hkv, sq, skv, causal, window):
+    q, k, v = _qkv(1, hq, hkv, sq, skv, 32, seed=sq)
+    (o, lse), (o_ref, lse_ref) = (_port(q, k, v, causal, window, torch.bfloat16),
+                                  _reference(q, k, v, causal, window, jnp.bfloat16))
+    np.testing.assert_allclose(o, o_ref, rtol=0, atol=2.0**-7)
+    np.testing.assert_allclose(lse, lse_ref, rtol=RTOL, atol=RTOL)
+
+
+def test_ragged_lengths_match_dense_attention():
+    """Lengths that are not a multiple of the tiles (the kernel masks the
+    tail keys with -inf): the plain version equals dense softmax."""
+    q, k, v = _qkv(2, 4, 2, 100, 100, 16, seed=5, layout="bshd")
+    for causal, window in ((True, None), (True, 30), (False, None)):
+        got = flash_attention(*(torch.tensor(a) for a in (q, k, v)), causal=causal,
+                              window=window)
+        want = ref.ref_attention(*(torch.tensor(a) for a in (q, k, v)), causal=causal,
+                                 window=window)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
+def test_op_matches_reference_oracle(causal, window):
+    """(B, S, H, D) at the public face, against the reference's oracle."""
+    q, k, v = _qkv(2, 8, 2, 128, 128, 16, seed=9, layout="bshd")
+    got = flash_attention(*(torch.tensor(a) for a in (q, k, v)), causal=causal, window=window)
+    want = ref_ref.ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 causal=causal, window=window)
+    assert got.shape == (2, 128, 8, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"causal": True},
+    {"causal": True, "window": 5},
+    {"causal": False, "kv_len": 9},
+    {"causal": False, "kv_len": 0},  # every row masked: the guard gives 0
+    {"causal": True, "q_offset": 7, "kv_len": 12},
+])
+def test_oracle_matches_reference(kwargs):
+    q, k, v = _qkv(2, 4, 2, 5, 12, 8, seed=3, layout="bshd")
+    got = ref.ref_attention(*(torch.tensor(a) for a in (q, k, v)), **kwargs)
+    want = ref_ref.ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kwargs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (lambda q, k, v: (q[0], k, v), ValueError),  # 3-d q
+    (lambda q, k, v: (q, k[:, :, :5], v), ValueError),  # k, v lengths differ
+    (lambda q, k, v: (q[:, :3], k, v), ValueError),  # Hq not a multiple of Hkv
+    (lambda q, k, v: (q, k.double(), v), TypeError),  # mixed dtypes
+    (lambda q, k, v: (q, k.to("meta"), v), ValueError),  # mixed devices
+])
+def test_wrapper_rejects_bad_inputs(bad, exc):
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 4, 2, 8, 8, 8, seed=0))
+    with pytest.raises(exc):
+        K.flash_fwd(*bad(q, k, v), scale=1.0, causal=True, window=None)
+
+
+def test_wrapper_never_falls_back_off_the_cpu():
+    q, k, v = (torch.tensor(a).to("meta") for a in _qkv(1, 4, 2, 8, 8, 8, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.flash_fwd(q, k, v, scale=1.0, causal=True, window=None)
+    assert K.launches == {"flash_fwd": 0}

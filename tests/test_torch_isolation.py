@@ -36,7 +36,10 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch, repro_torch.core, repro_torch.core.evaluator\n"
         "import repro_torch.quickstart, repro_torch.core.theory\n"
         "import repro_torch.configs.paper_workloads, repro_torch.kernels.sojourn_eval\n"
-        "import repro_torch.kernels.sojourn_eval._build\n"
+        "import repro_torch.kernels._build, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.launch.serve, repro_torch.models.transformer\n"
+        "from repro_torch.configs import registry\n"
+        "[registry.get_config(a) for a in registry.ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

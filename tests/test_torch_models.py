@@ -1,0 +1,243 @@
+"""Port parity of the dense model and its serving path (Qwen3-8B SMOKE).
+
+The JAX package's parameters (``repro.models.transformer.init_params``)
+are carried across with ``from_reference``; the same NumPy prompts go
+through ``repro``'s ``prefill`` / ``decode_step`` (``ShardingCtx.none()``,
+``attn_impl="xla"``) and through the port on the CPU, whose prefill
+attention runs the ``flash_fwd`` kernel's plain version.  In float32 the
+logits and the cache agree to 1e-4 relative to their largest magnitude
+(float32 products and sums in another order over four layers).  The
+decode-against-forward check also runs in bf16, to 3e-2 of the largest
+logit (the reason is at the test).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as ref_registry
+from repro.models import transformer as ref_T
+from repro.parallel.sharding import ShardingCtx
+from repro_torch.configs import registry
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.init import ParamSpec, from_reference, tree_bytes, tree_map
+from repro_torch.models.layers import rms_norm, rope, unembed
+
+RTOL = 1e-4
+F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+DENSE = ["qwen3-8b", "qwen3-1.7b", "llama3-8b", "granite-3-8b"]
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.max(np.abs(want)))
+    assert float(np.max(np.abs(got - want))) <= rtol * scale, (
+        float(np.max(np.abs(got - want))), scale)
+
+
+def _pair(arch="qwen3-8b", **overrides):
+    """(reference cfg, port cfg, reference params, port params)."""
+    ref_cfg = ref_registry.get_smoke(arch, **overrides)
+    cfg = registry.get_smoke(arch, **overrides)
+    ref_params = ref_T.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = from_reference(jax.tree.map(np.asarray, ref_params), cfg)
+    return ref_cfg, cfg, ref_params, params
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_configs_match_reference(arch):
+    for get_ref, get in ((ref_registry.get_config, registry.get_config),
+                         (ref_registry.get_smoke, registry.get_smoke)):
+        want, got = get_ref(arch), get(arch)
+        for f in dataclasses.fields(ModelConfig):
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+        assert (got.hd, got.padded_vocab, got.param_count()) == (
+            want.hd, want.padded_vocab, want.param_count())
+        assert got.dtype == torch.bfloat16 and got.pdtype == torch.bfloat16
+
+
+def test_qwen3_8b_size():
+    cfg = registry.get_config("qwen3-8b")
+    assert cfg.padded_vocab == 152064
+    assert 8.18e9 < cfg.param_count() < 8.20e9
+
+
+def test_registry_lists_reference_archs_and_raises_for_later_slices():
+    assert registry.list_archs() == ref_registry.list_archs()
+    for arch, (family, _) in registry.PENDING.items():
+        assert ref_registry.get_config(arch).family == family
+        with pytest.raises(NotImplementedError, match="port slice"):
+            registry.get_config(arch)
+        with pytest.raises(NotImplementedError, match="port slice"):
+            registry.get_smoke(arch)
+    with pytest.raises(ValueError, match="unknown arch"):
+        registry.get_config("gpt-2")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_specs_match_reference(arch):
+    cfg, ref_cfg = registry.get_config(arch), ref_registry.get_config(arch)
+    ref_specs = jax.tree.map(lambda s: (s.shape, s.logical, s.init, s.scale),
+                             ref_T.param_specs(ref_cfg),
+                             is_leaf=lambda x: hasattr(x, "logical"))
+    specs = tree_map(lambda s: (s.shape, s.logical, s.init, s.scale), T.param_specs(cfg))
+    assert specs == ref_specs
+
+
+def test_from_reference_carries_every_leaf():
+    _, cfg, ref_params, params = _pair(**F32)
+    flat = jax.tree.map(np.asarray, ref_params)
+    tree_map(lambda got, want: np.testing.assert_array_equal(got.numpy(), want), params, flat)
+    with pytest.raises(ValueError):
+        from_reference(flat, dataclasses.replace(cfg, d_ff=cfg.d_ff * 2))
+
+
+def test_from_reference_bf16_is_exact():
+    _, _, ref_params, params = _pair()
+    want = np.asarray(ref_params["layers"]["ffn"]["wg"]).astype(np.float32)
+    assert params["layers"]["ffn"]["wg"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(params["layers"]["ffn"]["wg"].float().numpy(), want)
+
+
+def test_init_params_seeded():
+    cfg = registry.get_smoke("qwen3-8b")
+    a = T.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    b = T.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0), a, b)
+    spec = T.param_specs(cfg)
+    tree_map(lambda s, t: (tuple(t.shape), t.dtype) == (s.shape, s.dtype) or pytest.fail(),
+             spec, a)
+    assert float(a["layers"]["ln1"].min()) == 1.0  # "ones" init
+    assert isinstance(spec["embed"]["final_norm"], ParamSpec)
+
+
+def test_layers_match_reference():
+    from repro.models import layers as ref_layers
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32)
+    pos = np.broadcast_to(np.arange(5) + 3, (2, 5))
+    _close(rms_norm(torch.tensor(x), torch.tensor(scale), 1e-5).numpy(),
+           ref_layers.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-5), 1e-6)
+    _close(rope(torch.tensor(x), torch.tensor(pos), 1e6).numpy(),
+           ref_layers.rope(jnp.asarray(x), jnp.asarray(pos), 1e6), 1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-1.7b", "llama3-8b"])
+def test_prefill_and_decode_match_reference(arch):
+    """The slice as a whole: prefill logits and cache, then three decode
+    steps, against the reference in float32."""
+    ref_cfg, cfg, ref_params, params = _pair(arch, **F32)
+    ctx = ShardingCtx.none()
+    b, s, max_len = 2, 12, 16
+    prompt = _tokens(cfg, b, s)
+    want_logits, want_cache = ref_T.prefill(ref_params, {"tokens": jnp.asarray(prompt)},
+                                            ref_cfg, ctx, max_len)
+    plan = serve.ServePlan(cfg=cfg, max_len=max_len, device=torch.device("cpu"))
+    logits, cache = serve.make_prefill_fn(plan)(params, {"tokens": torch.tensor(prompt)})
+    assert logits.shape == (b, s, cfg.padded_vocab) and logits.dtype == torch.float32
+    _close(logits.numpy(), want_logits)
+    for name in ("k", "v"):
+        assert cache["layers"][name].shape == want_cache["layers"][name].shape
+        _close(cache["layers"][name].numpy(), want_cache["layers"][name])
+    decode = serve.make_decode_fn(plan)
+    steps = _tokens(cfg, b, 3, seed=1)
+    for i in range(3):
+        want, want_cache = ref_T.decode_step(ref_params, jnp.asarray(steps[:, i : i + 1]),
+                                             want_cache, jnp.int32(s + i), ref_cfg, ctx)
+        got, cache = decode(params, torch.tensor(steps[:, i : i + 1]), cache, s + i)
+        assert got.shape == (b, 1, cfg.padded_vocab)
+        _close(got.numpy(), want)
+    _close(cache["layers"]["k"].numpy(), want_cache["layers"]["k"])
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", RTOL), ("bfloat16", 3e-2)])
+def test_decode_matches_forward(dtype, tol):
+    """Token-by-token decode from an empty cache equals the full forward,
+    as in ``test_arch_smoke.py``'s decode check; ``tol`` is relative to
+    the largest logit.  In bf16 the forward's attention (the flash plain
+    version) rounds P to bf16 before the normalisation and the decode's
+    (the oracle) after it, as the reference's kernel and oracle do, so
+    the two paths round at different places: a few bf16 ulps of the
+    logits (1.4% of the largest at this seed)."""
+    cfg = registry.get_smoke("qwen3-8b", param_dtype=dtype, compute_dtype=dtype)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, s = 2, 8
+    tokens = torch.tensor(_tokens(cfg, b, s))
+    x, _, _ = T.forward(params, {"tokens": tokens}, cfg, mode="train")
+    full = unembed(params["embed"], x, cfg)
+    cache = T.init_cache(cfg, b, s, "cpu")
+    for t in range(s):
+        lg, cache = T.decode_step(params, tokens[:, t : t + 1], cache, t, cfg)
+        _close(lg[:, 0].float().numpy(), full[:, t].float().numpy(), tol)
+
+
+def test_sliding_window_ring_cache_matches_reference():
+    """A sliding-window config: the prefill's ring-layout cache and the
+    ring-buffer decode agree with the reference."""
+    ref_cfg, cfg, ref_params, params = _pair(sliding_window=8, **F32)
+    ctx = ShardingCtx.none()
+    prompt = _tokens(cfg, 2, 11, seed=4)
+    want_logits, want_cache = ref_T.prefill(ref_params, {"tokens": jnp.asarray(prompt)},
+                                            ref_cfg, ctx, 16)
+    logits, cache = T.prefill(params, {"tokens": torch.tensor(prompt)}, cfg, 16)
+    _close(logits.numpy(), want_logits)
+    _close(cache["layers"]["v"].numpy(), want_cache["layers"]["v"])
+    tok = _tokens(cfg, 2, 1, seed=5)
+    want, _ = ref_T.decode_step(ref_params, jnp.asarray(tok), want_cache, jnp.int32(11),
+                                ref_cfg, ctx)
+    got, _ = T.decode_step(params, torch.tensor(tok), cache, 11, cfg)
+    _close(got.numpy(), want)
+
+
+def test_generate_first_decode_equals_longer_prefill():
+    """Greedy generation on the CPU; the first decode step's logits equal
+    the last logits of a prefill of the prompt plus the first new token."""
+    cfg = registry.get_smoke("qwen3-8b", **F32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    prompts = torch.tensor(_tokens(cfg, 3, 10, seed=2))
+    plan = serve.ServePlan(cfg=cfg, max_len=15, device=torch.device("cpu"))
+    res = serve.generate(plan, params, prompts, gen_len=5)
+    assert res.tokens.shape == (3, 5) and len(res.decode_s) == 4
+    assert int(res.tokens.max()) < cfg.vocab_size
+    assert res.cache_bytes == 2 * cfg.n_layers * 3 * 15 * cfg.n_kv_heads * cfg.hd * 4
+    longer = torch.cat([prompts, res.tokens[:, :1]], dim=1)
+    want, _ = T.prefill(params, {"tokens": longer}, cfg, 16)
+    _close(res.first_decode_logits.numpy(), want[:, -1].numpy())
+    with pytest.raises(ValueError, match="max_len"):
+        serve.generate(plan, params, prompts, gen_len=6)
+
+
+def test_serve_cli_on_cpu(capsys):
+    FK.launches["flash_fwd"] = 0
+    assert serve.main(["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                       "--gen-len", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "model qwen3-8b-smoke on cpu: batch=2 prompt=8 new=3" in out
+    assert "over 2 steps" in out and "req1:" in out
+    assert FK.launches["flash_fwd"] == 0  # the CPU runs the plain version
+
+
+def test_serve_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke"])
+
+
+def test_other_families_raise():
+    cfg = registry.get_smoke("qwen3-8b")
+    with pytest.raises(NotImplementedError, match="family 'moe'"):
+        dataclasses.replace(cfg, family="moe")
+    assert tree_bytes(T.init_cache(cfg, 1, 4, "cpu")) == 2 * 4 * 4 * 2 * cfg.hd * 2

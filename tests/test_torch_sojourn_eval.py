@@ -142,10 +142,18 @@ def test_mixed_radix_strides_match_reference():
     {"weights": np.ones(1)},
 ])
 def test_explicit_outcome_tables_not_ported(kwargs):
+    """The explicit-table mode, once left for a later slice, is ported: a
+    table evaluates as the dense oracle does, and weights alone raise."""
     jobs = [JobSpec(sizes=[1.0, 2.0], probs=[0.5, 0.5]), JobSpec(sizes=[1.0], probs=[1.0])]
     sizes, probs, num_stages = policies.padded_arrays(jobs)
-    with pytest.raises(NotImplementedError, match="sojourn_outcomes, port slice 2"):
-        ops.sojourn_eval(sizes, probs, num_stages, np.array([[0, 1]]), device="cpu", **kwargs)
+    orders = np.array([[0, 1]])
+    if "outcomes" not in kwargs:
+        with pytest.raises(ValueError, match="need weights"):
+            ops.sojourn_eval(sizes, probs, num_stages, orders, device="cpu", **kwargs)
+        return
+    want = [t.numpy() for t in ref.ref_sojourn(sizes, probs, num_stages, orders, **kwargs)]
+    _assert_close(ops.sojourn_eval(sizes, probs, num_stages, orders, device="cpu", **kwargs),
+                  want)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -186,4 +194,4 @@ def test_wrapper_never_falls_back_off_the_cpu():
         K.sojourn_enum(*[a.to("meta") for a in args], k_total)
     with pytest.raises(ValueError):
         K.sojourn_enum(*args, 0)
-    assert K.launches == {"sojourn_enum": 0, "sojourn_mc": 0}
+    assert K.launches == {"sojourn_enum": 0, "sojourn_mc": 0, "sojourn_outcomes": 0}
