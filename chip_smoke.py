@@ -11,11 +11,14 @@ Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
    once) and print its registers and spills;
-1. hold each of the six kernels against its plain PyTorch version on the
-   card at mid sizes: the sojourn kernels to a relative error of at most
-   1e-9 (with one dynamic case whose rank table holds a +inf index,
+1. hold each of the eight kernels against its plain PyTorch version on
+   the card at mid sizes: the sojourn kernels to a relative error of at
+   most 1e-9 (with one dynamic case whose rank table holds a +inf index,
    ROADMAP fault R2), ``flash_fwd`` in bf16 to the tolerances
-   ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``;
+   ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``ssd_fwd`` (two groups, several
+   chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd`` (caps 8,
+   40 and 320, ragged widths) to ``SSD_REL_L2`` / ``SSD_STATE_REL`` and
+   ``MOE_REL_L2``;
 2. replay the paper's worked example (SR 10, SERPT 9.75, OPTIMAL 9.1 with
    order [0, 1], RANK 9.1) through the default-device entry points;
 3. drive the evaluator's main path at full size, through the kernels
@@ -28,22 +31,38 @@ Phases, each of which must pass:
    (K = 2**21) evaluated for RANK and SR, and ``sample_outcomes`` with
    2**21 samples at N=27 over RANK plus 16 RANDOM orders; the table
    values must equal the exact (table-free) ones to 1e-9;
-5. serve Qwen3-8B at full width with random weights: a prefill of 4 x
-   2048 tokens and 32 greedy decode steps through
-   ``repro_torch.launch.serve``; ``flash_fwd`` must launch once per layer
-   (36).  The first decode step's logits are held to a prefill of the
-   prompt plus its token within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``.
-   One more prefill and three decode steps run under ``torch.profiler``
-   for the card's busy share;
+5. serve three models with random weights through
+   ``repro_torch.launch.serve``, each 4 prompts of 2048 tokens and 32 new
+   tokens, each with a decode-against-prefill check and, under
+   ``torch.profiler``, the card's busy share of one more prefill and three
+   decode steps:
+
+   a. Qwen3-8B at full width and depth: ``flash_fwd`` once per layer (36);
+      decode step 1 against a prefill of the prompt plus its token within
+      ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``;
+   b. Mamba2-1.3B, the whole model: ``ssd_fwd`` once per layer (48);
+      decode runs the plain recurrence.  A prefill of the first 1792
+      prompt tokens and 256 decode steps over the rest must end within
+      ``MAMBA_FLOOR_FACTOR`` times the rounding floor (the prefill in
+      chunks of 128 against 256) of the 2048-token prefill's last
+      logits, and a ``MAMBA_SHALLOW_LAYERS``-layer copy within
+      ``MAMBA_SHALLOW_REL_L2``;
+   c. Mixtral-8x22B at full width and ``MIXTRAL_LAYERS`` of its 56 layers:
+      ``flash_fwd`` once per layer, ``moe_ffn_fwd`` twice per layer per
+      step; one more prefill logs the share of (token, expert) pairs the
+      capacity dropped.  Decode step 1 is held to a prefill of the prompt
+      plus its token within ``MIXTRAL_REL_L2`` on a copy of the config
+      whose capacity drops nothing, with 4 x 512 prompt tokens;
 6. time each kernel and its plain version with CUDA events at the
    largest shapes of phases 3-5 (and hold the two results against each
    other there too), time ``scaled_dot_product_attention`` beside
-   ``flash_fwd`` as its library yardstick, and reckon each kernel's
+   ``flash_fwd`` and the three-``torch.bmm`` composition beside
+   ``moe_ffn_fwd`` as their library yardsticks, and reckon each kernel's
    bound.  Phase 1 times both at its mid sizes as well.
 
-Phases 3, 4 and 5 each set every launch count to 0 just before they
-drive their path and read the counts just after: every kernel of the
-path must have launched.
+Phases 3, 4 and each serving run of 5 set every launch count to 0 just
+before they drive their path and read the counts just after: every
+kernel of the path must have launched.
 
 It prints the kernel report as one JSON line, the card's name and power
 limit from ``nvidia-smi``, and as its last line
@@ -79,9 +98,42 @@ FLASH_LSE_ATOL = 1e-4
 #: unrelated logits, a relative L2 error near 1.4.
 SERVE_REL_L2 = 0.1
 SERVE_MAX_ABS = 0.5
+#: ssd_fwd against its plain version: y is bf16 on both sides (one ulp is
+#: 2**-8 relative) after float32 sums in another order, and C·Bᵀ sums bf16
+#: products on the tensor cores; the state stays float32 on both sides.
+SSD_REL_L2 = 1e-2
+SSD_STATE_REL = 1e-3
+#: moe_ffn_fwd against its plain version: the activation and the output are
+#: rounded to bf16 on both sides after float32 sums in another order.
+MOE_REL_L2 = 1e-2
+#: Mamba2-1.3B: 256 decode steps (the plain recurrence, y rounded to bf16
+#: a step) after a 1792-token prefill, against a 2048-token prefill (the
+#: ssd_fwd kernel, chunks of 256).  The random 48-layer stack amplifies
+#: bf16 roundings, so the bar of the whole model is tied to the rounding
+#: floor the same run measures: two prefills that differ only in their
+#: chunk size (128 or 256, both right) and so only in the order of their
+#: roundings.  Decode and prefill differ in more roundings than that (y
+#: rounded to bf16 each step, another order of every sum), so the bar is
+#: twice the floor.  The bar of a 6-layer copy at full width is fixed
+#: instead: its floor is small, and a fault in the cache hand-over or the
+#: recurrence shows there undamped.  On the CPU (width cut to 256) decode
+#: against prefill reads 4.6e-3 at 1 layer and 2.7e-2 at 6 layers in bf16,
+#: and 1e-4 in float32 at 48; so 0.06 at 6 layers, set before its first
+#: reading on the card.  Unrelated logits read about 1.4.
+MAMBA_FLOOR_FACTOR = 2.0
+MAMBA_SHALLOW_LAYERS = 6
+MAMBA_SHALLOW_REL_L2 = 0.06
+#: Mixtral-8x22B, decode step 1 against a prefill of prompt + 1 token, with
+#: a capacity that drops nothing: rounding as for Qwen3-8B over 12 layers,
+#: and on top of it a router near a tie may send the token to another
+#: expert in one of the two runs, which moves that request's logits by more
+#: than rounding does; so a relative L2 bar only, 0.15, set before any
+#: reading (a wrong cache slot or position gives about 1.4).
+MIXTRAL_REL_L2 = 0.15
 #: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate,
 #: dense bf16 tensor-core rate and HBM bandwidth, at the full 700 W limit.
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 SOJOURN_SRC = "src/repro_torch/kernels/sojourn_eval/csrc/"
@@ -92,6 +144,8 @@ REPLACES = {
     "dynamic_sojourn_enum": "src/repro/kernels/sojourn_eval/dynamic.py:351",
     "dynamic_sojourn_mc": "src/repro/kernels/sojourn_eval/dynamic.py:410",
     "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:163",
+    "ssd_fwd": "src/repro/kernels/ssd_scan/kernel.py:106",
+    "moe_ffn_fwd": "src/repro/kernels/moe_gemm/kernel.py:74",
 }
 SOURCES = {
     "sojourn_enum": SOJOURN_SRC + "sojourn_static.cu",
@@ -100,10 +154,15 @@ SOURCES = {
     "dynamic_sojourn_enum": SOJOURN_SRC + "sojourn_dynamic.cu",
     "dynamic_sojourn_mc": SOJOURN_SRC + "sojourn_dynamic.cu",
     "flash_fwd": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+    "ssd_fwd": "src/repro_torch/kernels/ssd_scan/csrc/ssd_fwd.cu",
+    "moe_ffn_fwd": "src/repro_torch/kernels/moe_gemm/csrc/moe_ffn.cu",
 }
 SEED = 0x5EED_CAFE
-#: The serving phase: Qwen3-8B, 4 requests of 2048 prompt tokens, 32 steps.
-SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "qwen3-8b", 4, 2048, 32
+#: The serving phases: 4 requests of 2048 prompt tokens, 32 steps each.
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+#: Mixtral-8x22B's depth on one card: 12 of 56 layers, about 61 GB of bf16
+#: weights at full width.
+MIXTRAL_LAYERS = 12
 
 
 class PhaseFailure(RuntimeError):
@@ -151,10 +210,12 @@ def cuda_ms(fn, reps: int):
 def launch_counters() -> list[dict]:
     """The launch-count dicts of every kernel wrapper."""
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_gemm import kernel as MK
     from repro_torch.kernels.sojourn_eval import dynamic as D
     from repro_torch.kernels.sojourn_eval import kernel as K
+    from repro_torch.kernels.ssd_scan import kernel as SK
 
-    return [K.launches, D.launches, FK.launches]
+    return [K.launches, D.launches, FK.launches, SK.launches, MK.launches]
 
 
 def reset_counts() -> None:
@@ -281,6 +342,31 @@ def flash_flops(b: int, hq: int, sq: int, skv: int, d: int, causal: bool) -> flo
     return 4.0 * b * hq * d * pairs
 
 
+def ssd_work(b, h, g, s, n, p, chunk) -> tuple[float, float, int]:
+    """(bf16 tensor ops, float32 ops, bytes) that one SSD scan needs: per
+    chunk, C·Bᵀ (2N) and the scores times x (2P) for each visible (t, s)
+    pair, t >= s, and the carried-state term and the state update (2 x
+    2 C N P).  The masks, exps and scalings are not counted, so the bound
+    is a lower one.  Bytes: x, dt, dA, B, C read once, y and the state
+    written once."""
+    pairs = chunk * (chunk + 1) / 2
+    chunks = b * h * (s // chunk)
+    tensor_ops = chunks * 2.0 * n * pairs
+    f32_ops = chunks * (2.0 * p * pairs + 4.0 * chunk * n * p)
+    io_bytes = b * h * s * p * 2 * 2 + b * h * s * 4 * 2 + b * g * s * n * 2 * 2 + b * h * n * p * 4
+    return tensor_ops, f32_ops, io_bytes
+
+
+def ssd_bound(tensor_ops: float, f32_ops: float, io_bytes: int) -> tuple[float, str]:
+    """The least time: the largest of the tensor-core part over the bf16
+    peak, the float32 part over the float32 vector peak (the two units can
+    run at once) and the bytes over the memory rate."""
+    times = {"operations": max(tensor_ops / BF16_FLOPS, f32_ops / FP32_FLOPS) * 1e3,
+             "bytes": io_bytes / HBM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
 def bound_ms(flops: float, in_bytes: int, out_bytes: int,
              peak: float = FP64_FLOPS) -> tuple[float, str]:
     t_ops = flops / peak * 1e3
@@ -392,8 +478,22 @@ def phase_kernels(dev, report) -> None:
     for shape, time_it in (((2, 8, 2, 512, 512, 128, True, None), True),
                            ((1, 8, 2, 384, 384, 128, True, 100), False),
                            ((1, 4, 1, 100, 300, 64, False, None), False),
-                           ((1, 8, 8, 200, 200, 128, True, None), False)):
+                           ((1, 8, 8, 200, 200, 128, True, None), False),
+                           # Mixtral-8x22B's prefill: group 6, window 4096
+                           ((SERVE_BATCH, 48, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, 4096),
+                            False)):
         check_flash(dev, report, shape, time_it)
+
+    # ssd_fwd (B, H, G, S, N, P, chunk): two groups and four chunks; ragged
+    # t-blocks (chunk 100); the SMOKE widths (N 16, P 24, chunk 8) padded
+    for shape, time_it in (((2, 8, 2, 1024, 128, 64, 256), True),
+                           ((1, 4, 1, 300, 64, 64, 100), False),
+                           ((1, 6, 3, 96, 16, 24, 8), False)):
+        check_ssd(dev, report, shape, time_it)
+    # moe_ffn_fwd (E, R, Dm, Dff): caps 8, 40 and 320; widths no tile divides
+    for shape, time_it in (((8, 320, 1024, 2048), True), ((8, 40, 1024, 2048), False),
+                           ((8, 8, 1024, 2048), False), ((3, 130, 200, 264), False)):
+        check_moe(dev, report, shape, time_it)
 
 
 def outcomes_args(jobs, orders, outcomes, weights, dev):
@@ -444,6 +544,107 @@ def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
     require(err_o <= FLASH_O_ATOL, f"flash_fwd {shape}: O err {err_o:.3e} > {FLASH_O_ATOL}")
     require(err_lse <= FLASH_LSE_ATOL,
             f"flash_fwd {shape}: LSE err {err_lse:.3e} > {FLASH_LSE_ATOL}")
+    if time_it and "phase1_ms" not in r:
+        r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
+        log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
+    return out
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 error of ``got`` against ``want`` (tensors, in float64)."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-300))
+
+
+def ssd_inputs(dev, b, h, g, s, n, p, seed=0):
+    """Kernel-layout SSD inputs as the model makes them: x, B, C in bf16;
+    dt in (0.01, 0.2) and dA = dt * A with A in (-2, -0.5), float32."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, h, s, p), generator=gen, device=dev).to(torch.bfloat16)
+    dt = 0.01 + 0.19 * torch.rand((b, h, s), generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev))
+    bm, cm = (torch.randn((b, g, s, n), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    return x, dt, dt * a[None, :, None], bm, cm
+
+
+def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
+    """``ssd_fwd`` against its plain version on inputs of ``shape`` (B, H,
+    G, S, N, P, chunk); returns the timings asked for."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    b, h, g, s, n, p, chunk = shape
+    args = ssd_inputs(dev, b, h, g, s, n, p)
+    out = {}
+    if time_it:
+        cuda_ms(lambda: SK.ssd_fwd(*args, chunk=chunk), 2)  # warm up
+        out["ms"], (y, st) = cuda_ms(lambda: SK.ssd_fwd(*args, chunk=chunk), reps)
+        out["plain_ms"], (y_p, st_p) = cuda_ms(lambda: SK.ssd_fwd_torch(*args, chunk=chunk), 1)
+    else:
+        y, st = SK.ssd_fwd(*args, chunk=chunk)
+        y_p, st_p = SK.ssd_fwd_torch(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(st).all()),
+            f"ssd_fwd {shape}: non-finite output")
+    err_y, err_st = rel_l2(y, y_p), rel_l2(st, st_p)
+    r = report.setdefault("ssd_fwd", {"max_abs_err": 0.0, "max_rel_l2": 0.0,
+                                      "max_state_rel_l2": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], float((y.float() - y_p.float()).abs().max()))
+    r["max_rel_l2"] = max(r["max_rel_l2"], err_y)
+    r["max_state_rel_l2"] = max(r["max_state_rel_l2"], err_st)
+    log(f"[kernel vs plain] ssd_fwd (B, H, G, S, N, P, chunk)={shape}: y rel L2 {err_y:.3e}, "
+        f"state rel L2 {err_st:.3e}")
+    require(err_y <= SSD_REL_L2, f"ssd_fwd {shape}: y rel L2 {err_y:.3e} > {SSD_REL_L2}")
+    require(err_st <= SSD_STATE_REL,
+            f"ssd_fwd {shape}: state rel L2 {err_st:.3e} > {SSD_STATE_REL}")
+    if time_it and "phase1_ms" not in r:
+        r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
+        log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
+    return out
+
+
+def moe_inputs(dev, e, r, dm, dff, seed=0):
+    """Expert rows x (E, R, Dm) of unit scale and fan-in-scaled expert
+    weights, bf16."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    return (draw((e, r, dm), 1.0), draw((e, dm, dff), dm**-0.5), draw((e, dm, dff), dm**-0.5),
+            draw((e, dff, dm), dff**-0.5))
+
+
+def check_moe(dev, report, shape, time_it=False, reps=3, args=None) -> dict:
+    """``moe_ffn_fwd`` against its plain version on inputs of ``shape`` (E,
+    R, Dm, Dff); returns the timings asked for."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm import kernel as MK
+
+    args = args or moe_inputs(dev, *shape)
+    out = {}
+    if time_it:
+        cuda_ms(lambda: MK.moe_ffn_fwd(*args), 1)  # warm up
+        out["ms"], o = cuda_ms(lambda: MK.moe_ffn_fwd(*args), reps)
+        out["plain_ms"], o_p = cuda_ms(lambda: MK.moe_ffn_fwd_torch(*args), 1)
+    else:
+        o, o_p = MK.moe_ffn_fwd(*args), MK.moe_ffn_fwd_torch(*args)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(o.float()).all()), f"moe_ffn_fwd {shape}: non-finite output")
+    err = rel_l2(o, o_p)
+    r = report.setdefault("moe_ffn_fwd", {"max_abs_err": 0.0, "max_rel_l2": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], float((o.float() - o_p.float()).abs().max()))
+    r["max_rel_l2"] = max(r["max_rel_l2"], err)
+    log(f"[kernel vs plain] moe_ffn_fwd (E, R, Dm, Dff)={shape}: rel L2 {err:.3e}, max abs "
+        f"{float((o.float() - o_p.float()).abs().max()):.3e}")
+    require(err <= MOE_REL_L2, f"moe_ffn_fwd {shape}: rel L2 {err:.3e} > {MOE_REL_L2}")
     if time_it and "phase1_ms" not in r:
         r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
         log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
@@ -568,62 +769,68 @@ def phase_outcomes_path() -> dict:
     return {"launches": counts, "jobs": j21, "table": table21}
 
 
-def phase_serving(dev) -> dict:
-    """Phase 5: Qwen3-8B at full width, random weights from a seed, served
-    through ``repro_torch.launch.serve``; launch counts around the run."""
+def serve_model(dev, cfg, warm_len: int = 64) -> dict:
+    """Random weights for ``cfg`` from the seed, a short warm-up (cuBLAS,
+    the kernels), then one timed ``generate`` of SERVE_BATCH prompts of
+    SERVE_PROMPT tokens and SERVE_STEPS decode steps through
+    ``repro_torch.launch.serve``, with the launch counts set to 0 just
+    before it and read just after."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.init import tree_bytes
 
-    cfg = get_config(SERVE_ARCH)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = T.init_params(cfg, gen, dev)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
                             device=dev)
     torch.cuda.synchronize()
-    weights_bytes = tree_bytes(params)
-    log(f"[serving] {cfg.name}: {cfg.param_count() / 1e9:.4g} B parameters, "
-        f"{weights_bytes / 1e9:.4g} GB of weights made in {time.perf_counter() - t0:.1f} s")
+    tag = f"[serving {cfg.name}]"
+    log(f"{tag} {cfg.n_layers} layers, {cfg.param_count() / 1e9:.4g} B parameters, "
+        f"{tree_bytes(params) / 1e9:.4g} GB of weights made in {time.perf_counter() - t0:.1f} s")
     plan = serve.ServePlan(cfg=cfg, max_len=SERVE_PROMPT + SERVE_STEPS + 1, device=dev)
-    serve.generate(plan, params, prompts[:, :64], gen_len=2)  # warm up: cuBLAS, the kernel
+    serve.generate(plan, params, prompts[:, :warm_len], gen_len=2)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    free = torch.cuda.get_device_properties(dev).total_memory - torch.cuda.max_memory_reserved(dev)
     decode_ms = [t * 1e3 for t in res.decode_s]
-    log(f"[serving] prefill {SERVE_BATCH} x {SERVE_PROMPT}: {res.prefill_s * 1e3:.1f} ms; "
+    log(f"{tag} prefill {SERVE_BATCH} x {SERVE_PROMPT}: {res.prefill_s * 1e3:.1f} ms; "
         f"{len(decode_ms)} decode steps: mean {sum(decode_ms) / len(decode_ms):.2f} ms, "
         f"min {min(decode_ms):.2f}, max {max(decode_ms):.2f} (host clock, synchronised)")
-    log(f"[serving] cache {res.cache_bytes / 1e9:.4g} GB, prefill logits "
-        f"{res.logits_bytes / 1e9:.4g} GB, peak allocated {peak / 1e9:.4g} GB")
-    log(f"[serving] launches: {counts}; tokens of req0: {res.tokens[0, :8].tolist()}")
-    require(counts["flash_fwd"] == cfg.n_layers,
-            f"flash_fwd launched {counts['flash_fwd']} times in one prefill of "
-            f"{cfg.n_layers} layers")
+    log(f"{tag} cache {res.cache_bytes / 1e9:.4g} GB, prefill logits "
+        f"{res.logits_bytes / 1e9:.4g} GB, peak allocated {peak / 1e9:.4g} GB, free at the "
+        f"peak {free / 1e9:.4g} GB of the card")
+    log(f"{tag} launches: {counts}; tokens of req0: {res.tokens[0, :8].tolist()}")
     require(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_STEPS + 1), "token count")
     require(int(res.tokens.max()) < cfg.vocab_size and int(res.tokens.min()) >= 0,
             "a token outside the vocabulary")
-    first = res.first_decode_logits
-    require(bool(torch.isfinite(first).all()), "non-finite decode logits")
-    # decode step 1 against a prefill of the prompt plus the prefill's token
-    longer = torch.cat([prompts, res.tokens[:, :1]], dim=1)
-    want, _ = serve.make_prefill_fn(plan)(params, {"tokens": longer})
-    want = want[:, -1]
-    rel_l2 = float((first - want).norm() / want.norm())
-    max_abs = float((first - want).abs().max())
-    log(f"[serving] decode step 1 vs prefill of {SERVE_PROMPT + 1} tokens: rel L2 "
-        f"{rel_l2:.3e}, max abs {max_abs:.3e} (logit std {float(want.std()):.3f}), argmax "
-        f"agrees on {int((first.argmax(-1) == want.argmax(-1)).sum())}/{SERVE_BATCH}")
-    require(rel_l2 <= SERVE_REL_L2 and max_abs <= SERVE_MAX_ABS,
-            f"decode vs prefill: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e}")
-    del want, first
-    # the card's busy share: kernel time under the profiler over the wall
-    # time of the same work in the unprofiled run above
+    require(bool(torch.isfinite(res.first_decode_logits).all()), "non-finite decode logits")
+    return {"params": params, "prompts": prompts, "plan": plan, "res": res, "counts": counts,
+            "tag": tag}
+
+
+def logits_err(tag: str, got, want) -> tuple[float, float]:
+    """(relative L2, largest absolute) error of float32 logits (B, V)."""
+    rel, max_abs = rel_l2(got, want), float((got - want).abs().max())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    log(f"{tag}: rel L2 {rel:.3e}, max abs {max_abs:.3e} (logit std {float(want.std()):.3f}), "
+        f"argmax agrees on {agree}/{want.shape[0]}")
+    return rel, max_abs
+
+
+def busy_shares(run: dict) -> None:
+    """The card's busy share: kernel and copy time under ``torch.profiler``
+    of one more prefill and three decode steps, over the wall time of the
+    same work in the unprofiled run."""
+    from repro_torch.launch import serve
+
+    plan, params, prompts, res = run["plan"], run["params"], run["prompts"], run["res"]
     prefill, decode = serve.make_prefill_fn(plan), serve.make_decode_fn(plan)
     out = {}
     prefill_dev = profiled_device_ms(
@@ -632,15 +839,191 @@ def phase_serving(dev) -> dict:
     decode_dev = profiled_device_ms(lambda: [
         decode(params, res.tokens[:, i : i + 1], out["cache"], SERVE_PROMPT + i)
         for i in range(steps)])
-    mean_decode_ms = sum(decode_ms) / len(decode_ms)
+    mean_decode_ms = sum(res.decode_s) / len(res.decode_s) * 1e3
     for name, dev_ms, wall_ms in (("prefill", prefill_dev, res.prefill_s * 1e3),
                                   ("decode step", decode_dev and decode_dev / steps,
                                    mean_decode_ms)):
-        log(f"[serving] {name}: device busy {dev_ms!r} ms of {wall_ms:.2f} ms wall, share "
+        log(f"{run['tag']} {name}: device busy {dev_ms!r} ms of {wall_ms:.2f} ms wall, share "
             f"{dev_ms and dev_ms / wall_ms!r} (torch.profiler kernel and copy time)")
-    del params, res, out
+
+
+def release(run: dict) -> None:
+    import torch
+
+    run.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_serving(dev) -> dict:
+    """Phase 5a: Qwen3-8B at full width and depth."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("qwen3-8b")
+    run = serve_model(dev, cfg)
+    counts = run["counts"]
+    require(counts["flash_fwd"] == cfg.n_layers,
+            f"flash_fwd launched {counts['flash_fwd']} times in one prefill of "
+            f"{cfg.n_layers} layers")
+    # decode step 1 against a prefill of the prompt plus the prefill's token
+    res = run["res"]
+    longer = torch.cat([run["prompts"], res.tokens[:, :1]], dim=1)
+    want = serve.make_prefill_fn(run["plan"])(run["params"], {"tokens": longer})[0][:, -1].clone()
+    rel, max_abs = logits_err(f"{run['tag']} decode step 1 vs prefill of {SERVE_PROMPT + 1} "
+                              "tokens", res.first_decode_logits, want)
+    require(rel <= SERVE_REL_L2 and max_abs <= SERVE_MAX_ABS,
+            f"decode vs prefill: rel L2 {rel:.3e}, max abs {max_abs:.3e}")
+    del want
+    busy_shares(run)
+    release(run)
+    return {"launches": counts}
+
+
+def mamba_decode_vs_prefill(tag: str, plan, params, prompts) -> float:
+    """Relative L2 error of the last of 256 decode steps, after a prefill
+    of the prompts' first tokens, against the whole prompts' prefill."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    head = prompts.shape[1] - 256
+    want = serve.make_prefill_fn(plan)(params, {"tokens": prompts})[0][:, -1].clone()
+    _, cache = serve.make_prefill_fn(plan)(params, {"tokens": prompts[:, :head]})
+    decode = serve.make_decode_fn(plan)
+    t0 = time.perf_counter()
+    for pos in range(head, prompts.shape[1]):
+        got, cache = decode(params, prompts[:, pos : pos + 1], cache, pos)
+    torch.cuda.synchronize()
+    log(f"{tag} 256 decode steps after a {head}-token prefill in "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(bool(torch.isfinite(got).all()), "non-finite decode logits")
+    return logits_err(f"{tag} step 256 vs the {prompts.shape[1]}-token prefill", got[:, 0],
+                      want)[0]
+
+
+def phase_serving_mamba(dev) -> dict:
+    """Phase 5b: Mamba2-1.3B, the whole model.  Then a prefill of the first
+    1792 prompt tokens and 256 decode steps over the other 256, against the
+    2048-token prefill's last logits, for the whole model and a shallow
+    copy."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mamba2-1.3b")
+    run = serve_model(dev, cfg)
+    counts = run["counts"]
+    require(counts["ssd_fwd"] == cfg.n_layers,
+            f"ssd_fwd launched {counts['ssd_fwd']} times in one prefill of {cfg.n_layers} layers")
+    require(counts["flash_fwd"] == 0 and counts["moe_ffn_fwd"] == 0,
+            "an attention or MoE kernel ran in an attention-free model")
+    plan, params, prompts = run["plan"], run["params"], run["prompts"]
+    rel = mamba_decode_vs_prefill(run["tag"], plan, params, prompts)
+    # the rounding floor: the same prefill in chunks of 128, as right as 256
+    want = serve.make_prefill_fn(plan)(params, {"tokens": prompts})[0][:, -1].clone()
+    plan128 = serve.ServePlan(cfg=dataclasses.replace(cfg, ssm_chunk=128), max_len=plan.max_len,
+                              device=dev)
+    alt = serve.make_prefill_fn(plan128)(params, {"tokens": prompts})[0][:, -1].clone()
+    floor, _ = logits_err(f"{run['tag']} floor: the prefill in chunks of 128 vs 256", alt, want)
+    log(f"{run['tag']} decode vs prefill {rel:.3e}, bar {MAMBA_FLOOR_FACTOR} x floor "
+        f"{floor:.3e} = {MAMBA_FLOOR_FACTOR * floor:.3e}")
+    require(rel <= MAMBA_FLOOR_FACTOR * floor,
+            f"Mamba decode vs prefill: rel L2 {rel:.3e} > {MAMBA_FLOOR_FACTOR} x floor {floor:.3e}")
+    del want, alt
+    busy_shares(run)
+    release(run)
+    # a shallow copy at full width: little rounding to hide a fault behind
+    shallow = dataclasses.replace(cfg, n_layers=MAMBA_SHALLOW_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(shallow, gen, dev)
+    plan = serve.ServePlan(cfg=shallow, max_len=SERVE_PROMPT + 1, device=dev)
+    rel = mamba_decode_vs_prefill(f"[serving {cfg.name}, {shallow.n_layers} layers]", plan,
+                                  params, prompts)
+    require(rel <= MAMBA_SHALLOW_REL_L2,
+            f"Mamba {shallow.n_layers}-layer decode vs prefill: rel L2 {rel:.3e} > "
+            f"{MAMBA_SHALLOW_REL_L2}")
+    del params, prompts
     torch.cuda.empty_cache()
     return {"launches": counts}
+
+
+def count_dropped(plan, params, prompts) -> tuple[int, int]:
+    """(MoE layer calls, (token, expert) pairs dropped) of one prefill, seen
+    by wrapping ``moe._slot_positions`` for that prefill only."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    dropped = []
+    slot_positions = moe._slot_positions
+
+    def counting(*args):
+        pos, keep = slot_positions(*args)
+        dropped.append((~keep).sum())
+        return pos, keep
+
+    moe._slot_positions = counting
+    try:
+        serve.make_prefill_fn(plan)(params, {"tokens": prompts})
+    finally:
+        moe._slot_positions = slot_positions
+    return len(dropped), int(torch.stack(dropped).sum())
+
+
+def phase_serving_mixtral(dev) -> dict:
+    """Phase 5c: Mixtral-8x22B at full width and MIXTRAL_LAYERS layers;
+    the capacity's drop share; decode step 1 against a longer prefill on
+    a copy of the config whose capacity drops nothing."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    cfg = get_config("mixtral-8x22b", n_layers=MIXTRAL_LAYERS)
+    run = serve_model(dev, cfg)
+    counts = run["counts"]
+    calls = cfg.n_layers * (SERVE_STEPS + 1)  # the prefill and each decode step
+    require(counts["flash_fwd"] == cfg.n_layers,
+            f"flash_fwd launched {counts['flash_fwd']} times in one prefill of "
+            f"{cfg.n_layers} layers")
+    require(counts["moe_ffn_fwd"] == 2 * calls,
+            f"moe_ffn_fwd launched {counts['moe_ffn_fwd']} times, not twice in each of "
+            f"{calls} MoE layer calls")
+    require(counts["ssd_fwd"] == 0, "ssd_fwd ran in an attention model")
+    g, cap = moe.capacity(cfg, SERVE_BATCH * SERVE_PROMPT)
+    pairs = SERVE_BATCH * SERVE_PROMPT * cfg.top_k * cfg.n_layers
+    moe_calls, dropped = count_dropped(run["plan"], run["params"], run["prompts"])
+    require(moe_calls == cfg.n_layers, f"{moe_calls} MoE layer calls in a prefill")
+    log(f"{run['tag']} prefill routing: groups of {g} tokens, cap {cap}; dropped {dropped} of "
+        f"{pairs} (token, expert) pairs, share {dropped / pairs:.4%}")
+    busy_shares(run)
+    # decode vs prefill where no token can drop: capacity_factor = E / k
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    prompt = run["prompts"][:, :512]
+    plan = serve.ServePlan(cfg=no_drop, max_len=prompt.shape[1] + 2, device=dev)
+    logits, cache = serve.make_prefill_fn(plan)(run["params"], {"tokens": prompt})
+    tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
+    del logits
+    got, _ = serve.make_decode_fn(plan)(run["params"], tok, cache, prompt.shape[1])
+    longer = torch.cat([prompt, tok], dim=1)
+    want = serve.make_prefill_fn(plan)(run["params"], {"tokens": longer})[0][:, -1].clone()
+    rel, _ = logits_err(f"{run['tag']} no-drop copy: decode step 1 vs prefill of "
+                        f"{prompt.shape[1] + 1} tokens", got[:, 0], want)
+    require(bool(torch.isfinite(got).all()), "non-finite decode logits")
+    require(rel <= MIXTRAL_REL_L2, f"Mixtral decode vs prefill: rel L2 {rel:.3e}")
+    del got, want, cache
+    release(run)
+    return {"launches": counts, "dropped_share": dropped / pairs}
 
 
 def phase_timing(dev, workloads, outcomes_path, report) -> None:
@@ -709,6 +1092,49 @@ def phase_timing(dev, workloads, outcomes_path, report) -> None:
     del q, k, v
     torch.cuda.empty_cache()
 
+    # ssd_fwd at the Mamba2-1.3B prefill shape: one layer's scan
+    shape = (SERVE_BATCH, 64, 1, SERVE_PROMPT, 128, 64, 256)
+    t = check_ssd(dev, report, shape, time_it=True)
+    tensor_ops, f32_ops, io_bytes = ssd_work(*shape)
+    b_ms, b_by = ssd_bound(tensor_ops, f32_ops, io_bytes)
+    report["ssd_fwd"].update(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"],
+                             bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=None)
+    log(f"[timing] ssd_fwd (B, H, G, S, N, P, chunk)={shape}: {t['ms']:.3f} ms over 10 runs, "
+        f"plain {t['plain_ms']:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {tensor_ops:.4g} bf16 "
+        f"tensor ops, {f32_ops:.4g} f32 ops, {io_bytes / 1e6:.1f} MB): {b_ms / t['ms']:.2%} of it")
+
+    # moe_ffn_fwd at the Mixtral-8x22B prefill shape (8 groups x cap 320 folded
+    # into 2560 rows an expert), and at its decode shape (cap 8)
+    from repro_torch.kernels.moe_gemm import kernel as MK
+    from repro_torch.kernels.moe_gemm.ref import moe_ffn_ref
+
+    e, rows, dm, dff = 8, 8 * 320, 6144, 16384
+    args = moe_inputs(dev, e, rows, dm, dff, seed=2)
+    t = check_moe(dev, report, (e, rows, dm, dff), time_it=True, args=args)
+    cuda_ms(lambda: moe_ffn_ref(*args), 1)  # warm up
+    library_ms, _ = cuda_ms(lambda: moe_ffn_ref(*args), 3)
+    flops = 6.0 * e * rows * dm * dff
+    io_bytes = tensor_bytes(args) + e * rows * dm * 2
+    b_ms, b_by = bound_ms(flops, io_bytes, 0, peak=BF16_FLOPS)
+    dec_args = (args[0][:, :8].contiguous(), *args[1:])
+    dec_ms = check_moe(dev, report, (e, 8, dm, dff), time_it=True, reps=10, args=dec_args)["ms"]
+    dec_b_ms, dec_b_by = bound_ms(6.0 * e * 8 * dm * dff, tensor_bytes(dec_args), e * 8 * dm * 2,
+                                  peak=BF16_FLOPS)
+    report["moe_ffn_fwd"].update(
+        shape=str((e, rows, dm, dff)), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, reps=3, library_ms=library_ms,
+        library="three torch.bmm (moe_ffn_ref), a yardstick, not a port",
+        decode_shape=str((e, 8, dm, dff)), decode_ms=dec_ms, decode_bound_ms=dec_b_ms,
+        decode_bound_by=dec_b_by)
+    log(f"[timing] moe_ffn_fwd (E, R, Dm, Dff)={(e, rows, dm, dff)}: {t['ms']:.3f} ms over 3 "
+        f"runs, plain {t['plain_ms']:.1f} ms, three torch.bmm {library_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e9:.3f} GB): "
+        f"{b_ms / t['ms']:.2%} of it")
+    log(f"[timing] moe_ffn_fwd decode (E, R, Dm, Dff)={(e, 8, dm, dff)}: {dec_ms:.3f} ms over 10 "
+        f"runs; bound {dec_b_ms:.4f} ms ({dec_b_by}): {dec_b_ms / dec_ms:.2%} of it")
+    del args, dec_args
+    torch.cuda.empty_cache()
+
 
 def profiled_device_ms(fn) -> float | None:
     """Milliseconds of kernels and copies on the card during one call of
@@ -756,11 +1182,19 @@ def main() -> int:
     phase_cross_check(main_path["workloads"][26])
     outcomes_path = phase_outcomes_path()
     serving = phase_serving(dev)
+    mamba = phase_serving_mamba(dev)
+    mixtral = phase_serving_mixtral(dev)
     phase_timing(dev, main_path["workloads"], outcomes_path, report)
     smi = nvidia_smi()
+    flash_by_path = {"qwen3-8b": serving["launches"]["flash_fwd"],
+                     "mixtral-8x22b": mixtral["launches"]["flash_fwd"]}
+    report["flash_fwd"]["launches_by_path"] = flash_by_path
+    report["moe_ffn_fwd"]["dropped_share"] = mixtral["dropped_share"]
     launches = {**main_path["launches"], "sojourn_outcomes":
                 outcomes_path["launches"]["sojourn_outcomes"],
-                "flash_fwd": serving["launches"]["flash_fwd"]}
+                "flash_fwd": sum(flash_by_path.values()),
+                "ssd_fwd": mamba["launches"]["ssd_fwd"],
+                "moe_ffn_fwd": mixtral["launches"]["moe_ffn_fwd"]}
     kernels = []
     for name in REPLACES:
         r = report[name]
@@ -770,7 +1204,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{key: r[key] for key in ("max_rel_err", "max_lse_err") if key in r},
+            **{key: r[key] for key in ("max_rel_err", "max_lse_err", "max_rel_l2",
+                                       "max_state_rel_l2", "library", "launches_by_path",
+                                       "dropped_share", "decode_shape", "decode_ms",
+                                       "decode_bound_ms", "decode_bound_by") if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
         })

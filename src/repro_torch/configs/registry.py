@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 The counterpart of ``repro/configs/registry.py``.  It knows the same ten
-architecture ids.  The dense ones are built here; for every other family
-:func:`get_config` and :func:`get_smoke` raise ``NotImplementedError``
-naming the slice of the port (ROADMAP, "Port status") that brings it.
+architecture ids.  The dense, moe and ssm ones are built here; for the
+hybrid, vlm and encdec families :func:`get_config` and :func:`get_smoke`
+raise ``NotImplementedError`` naming the slice of the port (ROADMAP,
+"Port status") that brings them.  ``get_config(arch, **overrides)``
+replaces fields, e.g. ``n_layers`` to cut a model's depth to one card.
 """
 
 from __future__ import annotations
@@ -15,22 +17,20 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "PENDING", "get_config", "get_smoke", "list_archs"]
 
-#: arch id -> module name under repro_torch.configs (the ported dense family)
+#: arch id -> module name under repro_torch.configs (the ported families)
 ARCHS = {
+    "mixtral-8x22b": "mixtral_8x22b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-8b": "qwen3_8b",
     "granite-3-8b": "granite_3_8b",
     "llama3-8b": "llama3_8b",
 }
 
-_SSM = "port slice 3 (Mamba2-1.3B serving: the ssm family and the ssd_fwd kernel)"
-_MOE = "port slice 4 (Mixtral-8x22B serving: the moe family and the moe_ffn_fwd kernel)"
 _REST = "port slice 8 (the hybrid, vlm and encdec families: period stacks, cross attention)"
 #: arch id -> (family, the ROADMAP slice that brings it)
 PENDING = {
-    "mamba2-1.3b": ("ssm", _SSM),
-    "mixtral-8x22b": ("moe", _MOE),
-    "kimi-k2-1t-a32b": ("moe", _MOE),
     "jamba-v0.1-52b": ("hybrid", _REST),
     "llama-3.2-vision-11b": ("vlm", _REST),
     "seamless-m4t-large-v2": ("encdec", _REST),

@@ -39,7 +39,7 @@ __all__ = ["BUILD_DIR", "PACKAGES", "build_all", "library", "check"]
 KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS / "_build"
 #: Kernel packages whose ``csrc/*.cu`` are built.
-PACKAGES = ("sojourn_eval", "flash_attention")
+PACKAGES = ("sojourn_eval", "flash_attention", "ssd_scan", "moe_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -25,7 +25,7 @@ __all__ = ["ParamSpec", "materialize", "from_reference", "tree_map", "tree_bytes
 class ParamSpec:
     shape: tuple[int, ...]
     logical: tuple[str | None, ...]
-    init: str = "fan_in"  # fan_in | normal | ones (what the dense family uses)
+    init: str = "fan_in"  # fan_in | normal | zeros | ones
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
 
@@ -69,18 +69,34 @@ def _std(spec: ParamSpec) -> float:
     raise ValueError(f"unknown init {spec.init!r}")
 
 
+#: Largest number of elements drawn at once: a leaf above it is drawn slice
+#: by slice along its leading dims, so that drawing the largest leaf
+#: (Mixtral's stacked experts, 9.7e9 elements at 12 layers) never holds a
+#: float32 copy of the whole leaf.
+DRAW_ELEMENTS = 1 << 27
+
+
 def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     std = _std(spec)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return x.mul_(std).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    lead = 0  # leading dims walked one index at a time
+    while lead < len(spec.shape) - 1 and math.prod(spec.shape[lead:]) > DRAW_ELEMENTS:
+        lead += 1
+    for idx in np.ndindex(*spec.shape[:lead]):
+        x = torch.randn(spec.shape[lead:], generator=generator, dtype=torch.float32,
+                        device=device)
+        out[idx] = x.mul_(std)
+    return out
 
 
 def materialize(spec_tree: Any, generator: torch.Generator, device) -> Any:
     """Instantiate every ParamSpec leaf on ``device``, drawing from
     ``generator`` (which must live on ``device``) leaf by leaf in sorted
-    key order.  The numbers differ from the JAX package's for the same
+    key order, and a large leaf slice by slice (:data:`DRAW_ELEMENTS`).  The numbers differ from the JAX package's for the same
     seed; :func:`from_reference` is how the tests share weights."""
     return tree_map(lambda s: _init_one(s, generator, device), spec_tree)
 

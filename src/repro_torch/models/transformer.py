@@ -1,17 +1,25 @@
-"""Block assembly of the dense family: specs, prefill forward, decode.
+"""Block assembly of the dense, moe and ssm families: specs, prefill
+forward, decode.
 
-The counterpart of ``repro/models/transformer.py`` for the dense family
-on one device (sharding comes later: ROADMAP Queue 1 item 8).  The
-parameter tree has the reference's keys and its stacked ``layers``
-leaves (leading dim ``n_layers``); blocks run in a Python loop over the
-layers, where the reference scans.  Each block is pre-norm attention
-then a pre-norm SwiGLU MLP, both residual.
+The counterpart of ``repro/models/transformer.py`` for the families whose
+layers are uniform, on one device (sharding comes later: ROADMAP Queue 1
+item 8).  The parameter tree has the reference's keys and its stacked
+``layers`` leaves (leading dim ``n_layers``); blocks run in a Python
+loop over the layers, where the reference scans.  A block is a pre-norm
+mixer then, where the family has one, a pre-norm FFN, both residual; the
+kinds per family are the reference's ``_uniform_kind``:
+
+* dense: attention, then the SwiGLU MLP;
+* moe:   attention, then the mixture of experts (:mod:`.moe`), whose
+  load-balancing loss :func:`forward` sums over the layers;
+* ssm:   the Mamba-2 mixer (:mod:`.ssm`) alone.
 
 Two modes share the block code: ``forward(mode="prefill")`` runs the
-prompt and hands back every layer's K/V, ``decode_step`` runs one token
-against the cache and updates the cache IN PLACE.  Other families
-never reach this module: their :class:`ModelConfig` raises
-``NotImplementedError``.
+prompt and hands back every layer's cache entry (attention K/V, or the
+Mamba conv tails and float32 state), ``decode_step`` runs one token
+against the cache and updates the cache IN PLACE.  The hybrid, vlm and
+encdec families never reach this module: their :class:`ModelConfig`
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Any
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import ParamSpec, materialize, tree_map
 from repro_torch.models.layers import (
@@ -54,9 +64,22 @@ def _stack_specs(spec: Any, n: int) -> Any:
     )
 
 
+def _uniform_kind(cfg: ModelConfig) -> tuple[str, str | None]:
+    """(mixer, ffn kind) of every layer of a uniform family."""
+    if cfg.family == "ssm":
+        return "mamba", None
+    return "attn", "moe" if cfg.n_experts > 0 else ("mlp" if cfg.d_ff else None)
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    block = {"ln1": _norm_spec(cfg), "attn": attn.attn_specs(cfg),
-             "ln2": _norm_spec(cfg), "ffn": mlp_specs(cfg)}
+    mixer, ffn = _uniform_kind(cfg)
+    if mixer == "mamba":
+        block = {"ln1": _norm_spec(cfg), "mamba": ssm_mod.ssm_specs(cfg)}
+    else:
+        block = {"ln1": _norm_spec(cfg), "attn": attn.attn_specs(cfg)}
+    if ffn is not None:
+        block["ln2"] = _norm_spec(cfg)
+        block["ffn"] = moe_mod.moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg)
     return {"embed": embed_specs(cfg), "layers": _stack_specs(block, cfg.n_layers)}
 
 
@@ -69,8 +92,15 @@ def _layer(stacked: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], stacked)
 
 
-def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str | None):
+    """x plus the block's FFN, and the layer's aux loss."""
+    if kind is None:
+        return x, 0.0
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        out, aux = moe_mod.moe_apply(lp["ffn"], h, cfg)
+        return x + out, aux
+    return x + mlp_apply(lp["ffn"], h), 0.0
 
 
 def forward(
@@ -79,34 +109,51 @@ def forward(
     cfg: ModelConfig,
     *,
     mode: str = "prefill",
-) -> tuple[torch.Tensor, float, list | None]:
+) -> tuple[torch.Tensor, torch.Tensor | float, list | None]:
     """Full-sequence forward over ``batch["tokens"]`` (B, S) [with
     optional ``positions``].  Returns ``(hidden (B, S, D), aux_loss,
-    caches)``: the final-normed hidden states, 0.0 (the dense family has
-    no auxiliary loss), and with ``mode="prefill"`` each layer's
-    ``(k, v)`` (B, S, Hkv, hd), else None."""
+    caches)``: the final-normed hidden states, the MoE load-balancing
+    loss summed over the layers (0.0 where there is none), and with
+    ``mode="prefill"`` each layer's cache entry (attention ``(k, v)``
+    (B, S, Hkv, hd), or the Mamba ``{"conv_x", "conv_bc", "state"}``),
+    else None."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"unknown mode {mode!r}")
+    mixer, ffn = _uniform_kind(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     caches = [] if mode == "prefill" else None
+    aux = 0.0
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        out, kv = attn.attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                                  positions, window=cfg.sliding_window)
-        x = _ffn(lp, x + out, cfg)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if mixer == "mamba":
+            out, entry = ssm_mod.ssm_apply(lp["mamba"], h, cfg, return_cache=True)
+        else:
+            out, entry = attn.attn_apply(lp["attn"], h, cfg, positions,
+                                         window=cfg.sliding_window)
+        x, aux_l = _ffn(lp, x + out, cfg, ffn)
+        aux = aux + aux_l
         if caches is not None:
-            caches.append(kv)
+            caches.append(entry)
     x = rms_norm(x, params["embed"]["final_norm"], cfg.norm_eps)
-    return x, 0.0, caches
+    return x, aux, caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Zeroed serving cache: ``{"layers": {"k", "v"}}``, each
-    (L, B, S, Hkv, hd) in the working type, S = min(max_len, window)."""
+    """Zeroed serving cache ``{"layers": {...}}``, each leaf stacked over
+    the layers: attention ``k`` and ``v`` (L, B, S, Hkv, hd) in the
+    working type, S = min(max_len, window); or the Mamba ``conv_x``,
+    ``conv_bc`` (working type) and ``state`` (float32), which do not grow
+    with max_len."""
+    if cfg.family == "ssm":
+        dtypes = {"conv_x": cfg.dtype, "conv_bc": cfg.dtype, "state": torch.float32}
+        return {"layers": {name: torch.zeros((cfg.n_layers, *shape), dtype=dtypes[name],
+                                             device=device)
+                           for name, shape in ssm_mod.ssm_cache_shape(cfg, batch).items()}}
     window = cfg.sliding_window
     s = min(max_len, window) if window else max_len
     shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
@@ -121,23 +168,30 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_len: int) -> tuple[
     As the reference's ``prefill`` (``transformer.py:607``) does, the
     final norm is applied once more to the forward's (already normed)
     output before the unembedding.  Sliding-window caches keep the
-    trailing window in ring layout (token t at slot t % window).
+    trailing window in ring layout (token t at slot t % window); Mamba
+    layers hand over their conv tails and state as they are.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x, _, kvs = forward(params, batch, cfg, mode="prefill")
+    x, _, entries = forward(params, batch, cfg, mode="prefill")
     x = rms_norm(x, params["embed"]["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg)
     cache = init_cache(cfg, b, max_len, tokens.device)
-    target = cache["layers"]["k"].shape[2]
-    for i, (k, v) in enumerate(kvs):
+    layers = cache["layers"]
+    if cfg.family == "ssm":
+        for i, entry in enumerate(entries):
+            for name, t in entry.items():
+                layers[name][i] = t
+        return logits, cache
+    target = layers["k"].shape[2]
+    for i, (k, v) in enumerate(entries):
         if s >= target:  # keep the trailing window
             k, v = k[:, s - target:], v[:, s - target:]
             if cfg.sliding_window:
                 shift = (s - target) % target
                 k, v = torch.roll(k, shift, dims=1), torch.roll(v, shift, dims=1)
-        cache["layers"]["k"][i, :, : k.shape[1]] = k
-        cache["layers"]["v"][i, :, : v.shape[1]] = v
+        layers["k"][i, :, : k.shape[1]] = k
+        layers["v"][i, :, : v.shape[1]] = v
     return logits, cache
 
 
@@ -146,13 +200,17 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, pos: int,
     """One serving step: logits (B, 1, V) float32 for the token after
     ``token`` (B, 1) at position ``pos``.  The cache is updated IN PLACE
     and returned."""
+    mixer, ffn = _uniform_kind(cfg)
     x = embed_tokens(params["embed"], token, cfg)
-    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    layers = cache["layers"]
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        out, _, _ = attn.attn_decode(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                     ks[i], vs[i], pos, cfg,
-                                     ring=cfg.sliding_window is not None)
-        x = _ffn(lp, x + out, cfg)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if mixer == "mamba":
+            out, _ = ssm_mod.ssm_decode(lp["mamba"], h, _layer(layers, i), cfg)
+        else:
+            out, _, _ = attn.attn_decode(lp["attn"], h, layers["k"][i], layers["v"][i], pos,
+                                         cfg, ring=cfg.sliding_window is not None)
+        x, _ = _ffn(lp, x + out, cfg, ffn)
     x = rms_norm(x, params["embed"]["final_norm"], cfg.norm_eps)
     return unembed(params["embed"], x, cfg), cache

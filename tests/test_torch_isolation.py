@@ -38,6 +38,8 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.configs.paper_workloads, repro_torch.kernels.sojourn_eval\n"
         "import repro_torch.kernels._build, repro_torch.kernels.flash_attention\n"
         "import repro_torch.launch.serve, repro_torch.models.transformer\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.moe_gemm\n"
+        "import repro_torch.models.ssm, repro_torch.models.moe\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

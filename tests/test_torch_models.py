@@ -1,14 +1,16 @@
-"""Port parity of the dense model and its serving path (Qwen3-8B SMOKE).
+"""Port parity of the models and their serving path: the dense family
+(Qwen3 SMOKE), the ssm family (Mamba2 SMOKE) and the moe family
+(Mixtral and Kimi-K2 SMOKE).
 
 The JAX package's parameters (``repro.models.transformer.init_params``)
 are carried across with ``from_reference``; the same NumPy prompts go
 through ``repro``'s ``prefill`` / ``decode_step`` (``ShardingCtx.none()``,
-``attn_impl="xla"``) and through the port on the CPU, whose prefill
-attention runs the ``flash_fwd`` kernel's plain version.  In float32 the
-logits and the cache agree to 1e-4 relative to their largest magnitude
-(float32 products and sums in another order over four layers).  The
-decode-against-forward check also runs in bf16, to 3e-2 of the largest
-logit (the reason is at the test).
+the SMOKE configs' ``*_impl="xla"``) and through the port on the CPU,
+whose kernels (``flash_fwd``, ``ssd_fwd``, ``moe_ffn_fwd``) run their
+plain versions.  In float32 the logits and the cache agree to 1e-4
+relative to their largest magnitude (float32 products and sums in
+another order over a few layers).  The decode-against-forward check also
+runs in bf16, to 3e-2 of the largest logit (the reason is at the test).
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from repro_torch.models.layers import rms_norm, rope, unembed
 RTOL = 1e-4
 F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
 DENSE = ["qwen3-8b", "qwen3-1.7b", "llama3-8b", "granite-3-8b"]
+NEW = ["mamba2-1.3b", "mixtral-8x22b", "kimi-k2-1t-a32b"]  # the ssm and moe families
 
 
 def _close(got, want, rtol=RTOL):
@@ -55,15 +58,21 @@ def _tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + NEW)
 def test_configs_match_reference(arch):
     for get_ref, get in ((ref_registry.get_config, registry.get_config),
                          (ref_registry.get_smoke, registry.get_smoke)):
         want, got = get_ref(arch), get(arch)
         for f in dataclasses.fields(ModelConfig):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
-        assert (got.hd, got.padded_vocab, got.param_count()) == (
-            want.hd, want.padded_vocab, want.param_count())
+        assert (got.padded_vocab, got.param_count(), got.param_count(active_only=True)) == (
+            want.padded_vocab, want.param_count(), want.param_count(active_only=True))
+        if got.family == "ssm":
+            assert (got.d_inner, got.ssm_heads) == (want.d_inner, want.ssm_heads)
+        else:
+            assert got.hd == want.hd
+        assert [got.is_moe_layer(i) for i in range(got.n_layers)] == [
+            want.is_moe_layer(i) for i in range(want.n_layers)]
         assert got.dtype == torch.bfloat16 and got.pdtype == torch.bfloat16
 
 
@@ -71,6 +80,21 @@ def test_qwen3_8b_size():
     cfg = registry.get_config("qwen3-8b")
     assert cfg.padded_vocab == 152064
     assert 8.18e9 < cfg.param_count() < 8.20e9
+
+
+def test_serving_sizes_of_the_new_families():
+    """Mamba2-1.3B whole (1.344e9 parameters), Mixtral-8x22B at full width
+    and 12 of its 56 layers (about 30.4e9 parameters, 61 GB in bf16), and
+    their parameter trees as :func:`param_specs` lays them out."""
+    mamba = registry.get_config("mamba2-1.3b")
+    assert (mamba.d_inner, mamba.ssm_heads) == (4096, 64)
+    assert 1.343e9 < mamba.param_count() < 1.345e9
+    mixtral = registry.get_config("mixtral-8x22b", n_layers=12)
+    assert mixtral.d_model == 6144 and mixtral.n_layers == 12
+    assert 30.4e9 < mixtral.param_count() < 30.5e9
+    shapes = tree_map(lambda s: s.shape, T.param_specs(mixtral))
+    assert shapes["layers"]["ffn"]["wg"] == (12, 8, 6144, 16384)
+    assert "mamba" in T.param_specs(mamba)["layers"]
 
 
 def test_registry_lists_reference_archs_and_raises_for_later_slices():
@@ -85,7 +109,7 @@ def test_registry_lists_reference_archs_and_raises_for_later_slices():
         registry.get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + NEW)
 def test_param_specs_match_reference(arch):
     cfg, ref_cfg = registry.get_config(arch), ref_registry.get_config(arch)
     ref_specs = jax.tree.map(lambda s: (s.shape, s.logical, s.init, s.scale),
@@ -101,6 +125,15 @@ def test_from_reference_carries_every_leaf():
     tree_map(lambda got, want: np.testing.assert_array_equal(got.numpy(), want), params, flat)
     with pytest.raises(ValueError):
         from_reference(flat, dataclasses.replace(cfg, d_ff=cfg.d_ff * 2))
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_from_reference_carries_every_leaf_of_the_new_families(arch):
+    _, cfg, ref_params, params = _pair(arch, **F32)
+    flat = jax.tree.map(np.asarray, ref_params)
+    tree_map(lambda got, want: np.testing.assert_array_equal(got.numpy(), want), params, flat)
+    with pytest.raises(ValueError):
+        from_reference(flat, dataclasses.replace(cfg, d_model=cfg.d_model * 2))
 
 
 def test_from_reference_bf16_is_exact():
@@ -122,6 +155,27 @@ def test_init_params_seeded():
     assert isinstance(spec["embed"]["final_norm"], ParamSpec)
 
 
+def test_init_zeros_and_slice_by_slice(monkeypatch):
+    """``"zeros"`` leaves (``A_log``, ``dt_bias``) are zero; a leaf larger
+    than ``DRAW_ELEMENTS`` is drawn slice by slice along its leading dims,
+    each slice as its own float32 draw, scaled by the fan-in std."""
+    from repro_torch.models import init
+
+    cfg = registry.get_smoke("mamba2-1.3b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert float(params["layers"]["mamba"]["A_log"].abs().max()) == 0.0
+    assert float(params["layers"]["mamba"]["dt_bias"].abs().max()) == 0.0
+    assert float(params["layers"]["mamba"]["D"].min()) == 1.0
+    monkeypatch.setattr(init, "DRAW_ELEMENTS", 64)
+    spec = ParamSpec((3, 4, 8, 8), ("layers", None, None, None), dtype=torch.float32)
+    leaf = init.materialize({"w": spec}, torch.Generator().manual_seed(5), "cpu")["w"]
+    gen = torch.Generator().manual_seed(5)
+    std = 1 / (4 * 8) ** 0.5  # fan-in of a stacked leaf leaves out "layers"
+    for idx in np.ndindex(3, 4):  # 12 draws of (8, 8)
+        want = torch.randn((8, 8), generator=gen, dtype=torch.float32) * std
+        torch.testing.assert_close(leaf[idx], want, rtol=0, atol=0)
+
+
 def test_layers_match_reference():
     from repro.models import layers as ref_layers
 
@@ -135,13 +189,14 @@ def test_layers_match_reference():
            ref_layers.rope(jnp.asarray(x), jnp.asarray(pos), 1e6), 1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-1.7b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-1.7b", "llama3-8b", *NEW])
 def test_prefill_and_decode_match_reference(arch):
     """The slice as a whole: prefill logits and cache, then three decode
-    steps, against the reference in float32."""
+    steps, against the reference in float32.  A Mamba prompt is a whole
+    number of its SMOKE chunks (8), as the reference's scan requires."""
     ref_cfg, cfg, ref_params, params = _pair(arch, **F32)
     ctx = ShardingCtx.none()
-    b, s, max_len = 2, 12, 16
+    b, s, max_len = 2, (16 if cfg.family == "ssm" else 12), 20
     prompt = _tokens(cfg, b, s)
     want_logits, want_cache = ref_T.prefill(ref_params, {"tokens": jnp.asarray(prompt)},
                                             ref_cfg, ctx, max_len)
@@ -149,9 +204,14 @@ def test_prefill_and_decode_match_reference(arch):
     logits, cache = serve.make_prefill_fn(plan)(params, {"tokens": torch.tensor(prompt)})
     assert logits.shape == (b, s, cfg.padded_vocab) and logits.dtype == torch.float32
     _close(logits.numpy(), want_logits)
-    for name in ("k", "v"):
-        assert cache["layers"][name].shape == want_cache["layers"][name].shape
-        _close(cache["layers"][name].numpy(), want_cache["layers"][name])
+
+    def same_cache(got, want):
+        assert sorted(got["layers"]) == sorted(want["layers"])
+        for name, t in got["layers"].items():
+            assert t.shape == want["layers"][name].shape, name
+            _close(t.numpy(), want["layers"][name])
+
+    same_cache(cache, want_cache)
     decode = serve.make_decode_fn(plan)
     steps = _tokens(cfg, b, 3, seed=1)
     for i in range(3):
@@ -160,7 +220,20 @@ def test_prefill_and_decode_match_reference(arch):
         got, cache = decode(params, torch.tensor(steps[:, i : i + 1]), cache, s + i)
         assert got.shape == (b, 1, cfg.padded_vocab)
         _close(got.numpy(), want)
-    _close(cache["layers"]["k"].numpy(), want_cache["layers"]["k"])
+    same_cache(cache, want_cache)
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_forward_aux_loss_matches_reference(arch):
+    """The MoE load-balancing loss that ``forward`` sums over the layers
+    (0 for the ssm family), against the reference's."""
+    ref_cfg, cfg, ref_params, params = _pair(arch, **F32)
+    tokens = _tokens(cfg, 2, 16, seed=3)
+    _, want, _ = ref_T.forward(ref_params, {"tokens": jnp.asarray(tokens)}, ref_cfg,
+                               ShardingCtx.none())
+    _, got, _ = T.forward(params, {"tokens": torch.tensor(tokens)}, cfg, mode="train")
+    assert abs(float(got) - float(want)) <= 1e-6 * max(abs(float(want)), 1.0)
+    assert (float(got) > 0) == (cfg.family == "moe")
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", RTOL), ("bfloat16", 3e-2)])
@@ -173,6 +246,28 @@ def test_decode_matches_forward(dtype, tol):
     the two paths round at different places: a few bf16 ulps of the
     logits (1.4% of the largest at this seed)."""
     cfg = registry.get_smoke("qwen3-8b", param_dtype=dtype, compute_dtype=dtype)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, s = 2, 8
+    tokens = torch.tensor(_tokens(cfg, b, s))
+    x, _, _ = T.forward(params, {"tokens": tokens}, cfg, mode="train")
+    full = unembed(params["embed"], x, cfg)
+    cache = T.init_cache(cfg, b, s, "cpu")
+    for t in range(s):
+        lg, cache = T.decode_step(params, tokens[:, t : t + 1], cache, t, cfg)
+        _close(lg[:, 0].float().numpy(), full[:, t].float().numpy(), tol)
+
+
+@pytest.mark.parametrize("arch,dtype,tol", [
+    ("mamba2-1.3b", "float32", RTOL), ("mamba2-1.3b", "bfloat16", 3e-2),
+    ("mixtral-8x22b", "float32", RTOL), ("mixtral-8x22b", "bfloat16", 3e-2),
+])
+def test_decode_matches_forward_new_families(arch, dtype, tol):
+    """As :func:`test_decode_matches_forward` for the ssm and moe SMOKE
+    configs: token-by-token decode from an empty cache equals the full
+    forward.  Mamba: the forward's chunked scan and the decode's
+    recurrence sum the state in another order and round y to bf16 at
+    different steps; Mixtral's SMOKE capacity drops no token in either."""
+    cfg = registry.get_smoke(arch, param_dtype=dtype, compute_dtype=dtype)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     b, s = 2, 8
     tokens = torch.tensor(_tokens(cfg, b, s))
@@ -199,6 +294,26 @@ def test_sliding_window_ring_cache_matches_reference():
     want, _ = ref_T.decode_step(ref_params, jnp.asarray(tok), want_cache, jnp.int32(11),
                                 ref_cfg, ctx)
     got, _ = T.decode_step(params, torch.tensor(tok), cache, 11, cfg)
+    _close(got.numpy(), want)
+
+
+def test_moe_sliding_window_ring_matches_reference():
+    """Mixtral's SMOKE window (32) with a longer prompt: the ring-layout
+    cache and the ring-buffer decode of the moe family agree with the
+    reference."""
+    ref_cfg, cfg, ref_params, params = _pair("mixtral-8x22b", **F32)
+    ctx = ShardingCtx.none()
+    prompt = _tokens(cfg, 2, 40, seed=6)
+    want_logits, want_cache = ref_T.prefill(ref_params, {"tokens": jnp.asarray(prompt)},
+                                            ref_cfg, ctx, 48)
+    logits, cache = T.prefill(params, {"tokens": torch.tensor(prompt)}, cfg, 48)
+    assert cache["layers"]["k"].shape[2] == cfg.sliding_window
+    _close(logits.numpy(), want_logits)
+    _close(cache["layers"]["k"].numpy(), want_cache["layers"]["k"])
+    tok = _tokens(cfg, 2, 1, seed=7)
+    want, _ = ref_T.decode_step(ref_params, jnp.asarray(tok), want_cache, jnp.int32(40),
+                                ref_cfg, ctx)
+    got, _ = T.decode_step(params, torch.tensor(tok), cache, 40, cfg)
     _close(got.numpy(), want)
 
 
@@ -230,6 +345,42 @@ def test_serve_cli_on_cpu(capsys):
     assert FK.launches["flash_fwd"] == 0  # the CPU runs the plain version
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b"])
+def test_generate_new_families(arch):
+    """Greedy generation with the ssm and moe SMOKE configs on the CPU:
+    the Mamba cache does not grow with the sequence, and the first decode
+    step equals a prefill of the prompt plus the first new token.  The
+    prompt (7 tokens) and the longer one (8) are each one whole Mamba
+    chunk, as the scan requires (the SMOKE chunk is 8)."""
+    cfg = registry.get_smoke(arch, **F32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    prompts = torch.tensor(_tokens(cfg, 3, 7, seed=2))
+    plan = serve.ServePlan(cfg=cfg, max_len=12, device=torch.device("cpu"))
+    res = serve.generate(plan, params, prompts, gen_len=5)
+    assert res.tokens.shape == (3, 5) and int(res.tokens.max()) < cfg.vocab_size
+    if cfg.family == "ssm":
+        per_layer = 3 * ((cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+                         + cfg.ssm_heads * cfg.ssm_state * cfg.ssm_headdim)
+        assert res.cache_bytes == cfg.n_layers * per_layer * 4
+    longer = torch.cat([prompts, res.tokens[:, :1]], dim=1)
+    want, _ = T.prefill(params, {"tokens": longer}, cfg, 12)
+    _close(res.first_decode_logits.numpy(), want[:, -1].numpy())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b", "kimi-k2-1t-a32b"])
+def test_serve_cli_new_families_on_cpu(arch, capsys):
+    from repro_torch.kernels.moe_gemm import kernel as MK
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    SK.launches["ssd_fwd"] = MK.launches["moe_ffn_fwd"] = 0
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "16", "--gen-len", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"model {registry.get_smoke(arch).name} on cpu: batch=2 prompt=16 new=3" in out
+    assert "over 2 steps" in out
+    assert SK.launches["ssd_fwd"] == MK.launches["moe_ffn_fwd"] == 0  # plain versions
+
+
 def test_serve_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -238,6 +389,6 @@ def test_serve_defaults_to_the_card(monkeypatch):
 
 def test_other_families_raise():
     cfg = registry.get_smoke("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="family 'moe'"):
-        dataclasses.replace(cfg, family="moe")
+    with pytest.raises(NotImplementedError, match="family 'hybrid'"):
+        dataclasses.replace(cfg, family="hybrid")
     assert tree_bytes(T.init_cache(cfg, 1, 4, "cpu")) == 2 * 4 * 4 * 2 * cfg.hd * 2
