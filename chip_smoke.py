@@ -11,14 +11,19 @@ Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
    once) and print its registers and spills;
-1. hold each of the eight kernels against its plain PyTorch version on
+1. hold each of the ten kernels against its plain PyTorch version on
    the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
    ROADMAP fault R2), ``flash_fwd`` in bf16 to the tolerances
-   ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``ssd_fwd`` (two groups, several
-   chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd`` (caps 8,
-   40 and 320, ragged widths) to ``SSD_REL_L2`` / ``SSD_STATE_REL`` and
-   ``MOE_REL_L2``;
+   ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
+   (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64 and
+   128, ragged lengths) to ``FLASH_BWD_REL_L2``, ``ssd_fwd`` (two groups,
+   several chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd``
+   (caps 8, 40 and 320, ragged widths) to ``SSD_REL_L2`` /
+   ``SSD_STATE_REL`` and ``MOE_REL_L2``.  The MoE and SSD autograd
+   Functions (kernel forward, reference backward) give gradients within
+   ``MOE_GRAD_REL_L2`` / ``SSD_GRAD_REL_L2`` of autograd through their
+   plain versions;
 2. replay the paper's worked example (SR 10, SERPT 9.75, OPTIMAL 9.1 with
    order [0, 1], RANK 9.1) through the default-device entry points;
 3. drive the evaluator's main path at full size, through the kernels
@@ -53,16 +58,34 @@ Phases, each of which must pass:
       capacity dropped.  Decode step 1 is held to a prefill of the prompt
       plus its token within ``MIXTRAL_REL_L2`` on a copy of the config
       whose capacity drops nothing, with 4 x 512 prompt tokens;
-6. time each kernel and its plain version with CUDA events at the
-   largest shapes of phases 3-5 (and hold the two results against each
+6. train Qwen3-1.7B at full width and depth through
+   ``repro_torch.launch.train`` (``remat="full"``, SyntheticLM seed 0, its
+   first batch at every step (``RepeatedBatch``), ``TRAIN_BATCH``
+   sequences of ``TRAIN_SEQ`` tokens a step as
+   ``TRAIN_ACCUM`` micro-batches, ``TRAIN_STEPS`` optimizer steps, the
+   first of them the warm-up): ``flash_fwd`` twice per layer and
+   micro-batch (forward and recompute), ``flash_dkv`` and ``flash_dq``
+   once; every loss and gradient norm finite and the last loss below the
+   first; the step time, tokens per second, peak memory and, under
+   ``torch.profiler``, the card's busy share of one more step and its
+   largest kernels.  Then a
+   ``GRAD_CHECK_LAYERS``-layer copy at full width on one batch of
+   ``GRAD_CHECK_TOKENS`` tokens: its loss and every gradient leaf (bf16, on
+   the card, through the kernels) within ``TRAIN_LOSS_REL`` /
+   ``TRAIN_GRAD_REL_L2`` of the same step on the CPU in float32 through the
+   plain path;
+7. time each kernel and its plain version with CUDA events at the
+   largest shapes of phases 3-6 (and hold the two results against each
    other there too), time ``scaled_dot_product_attention`` beside
-   ``flash_fwd`` and the three-``torch.bmm`` composition beside
-   ``moe_ffn_fwd`` as their library yardsticks, and reckon each kernel's
-   bound.  Phase 1 times both at its mid sizes as well.
+   ``flash_fwd``, its backward (forward and backward minus forward)
+   beside ``flash_dkv`` and ``flash_dq``, and the three-``torch.bmm``
+   composition beside ``moe_ffn_fwd`` as their library yardsticks, and
+   reckon each kernel's bound.  Phase 1 times each at its mid sizes as
+   well.
 
-Phases 3, 4 and each serving run of 5 set every launch count to 0 just
-before they drive their path and read the counts just after: every
-kernel of the path must have launched.
+Phases 3, 4, each serving run of 5 and the training run of 6 set every
+launch count to 0 just before they drive their path and read the counts
+just after: every kernel of the path must have launched.
 
 It prints the kernel report as one JSON line, the card's name and power
 limit from ``nvidia-smi``, and as its last line
@@ -130,6 +153,31 @@ MAMBA_SHALLOW_REL_L2 = 0.06
 #: than rounding does; so a relative L2 bar only, 0.15, set before any
 #: reading (a wrong cache slot or position gives about 1.4).
 MIXTRAL_REL_L2 = 0.15
+#: flash_dkv and flash_dq against their plain versions on bf16 inputs: the
+#: kernels round P and dS to bf16 before their tensor-core products (2**-9
+#: relative each), the plain versions keep them in float32.  Relative L2
+#: error of each of dQ, dK and dV, at the expected scale of those roundings.
+FLASH_BWD_REL_L2 = 1e-2
+#: The MoE Function's gradients (its backward recomputes through
+#: moe_ffn_ref, which rounds x·Wg and x·Wu to bf16: ROADMAP R5) against
+#: autograd through the kernel's plain version (float32 products): relative
+#: L2 of each input's gradient.  On the CPU in bf16 the two differ by
+#: 3.2e-3 to 4.2e-3; about 4 x that, set before the first reading.
+MOE_GRAD_REL_L2 = 1.5e-2
+#: The SSD Function's gradients (recomputed through ssd_chunked, float32)
+#: against autograd through the kernel's plain version (the same float32
+#: arithmetic): equal on the CPU; on the card float32 sums may run in
+#: another order.
+SSD_GRAD_REL_L2 = 1e-3
+#: Training's gradient check: a copy of Qwen3-1.7B cut to 2 layers at full
+#: width, one batch of 512 tokens, bf16 on the card through the kernels
+#: against float32 on the CPU through the plain path.  On the CPU (bf16
+#: plain path against float32) the loss reads 1.2e-5 relative and the
+#: gradient leaves 1.1e-2 to 1.6e-2 relative L2; the kernels add their P
+#: and dS roundings (about 2e-3 on attention's gradients).  Bars about 3 x
+#: and 80 x those, set before the first reading on the card.
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_REL_L2 = 5e-2
 #: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate,
 #: dense bf16 tensor-core rate and HBM bandwidth, at the full 700 W limit.
 FP64_FLOPS = 34e12
@@ -144,6 +192,8 @@ REPLACES = {
     "dynamic_sojourn_enum": "src/repro/kernels/sojourn_eval/dynamic.py:351",
     "dynamic_sojourn_mc": "src/repro/kernels/sojourn_eval/dynamic.py:410",
     "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:163",
+    "flash_dkv": "src/repro/kernels/flash_attention/kernel.py:267",
+    "flash_dq": "src/repro/kernels/flash_attention/kernel.py:364",
     "ssd_fwd": "src/repro/kernels/ssd_scan/kernel.py:106",
     "moe_ffn_fwd": "src/repro/kernels/moe_gemm/kernel.py:74",
 }
@@ -154,6 +204,8 @@ SOURCES = {
     "dynamic_sojourn_enum": SOJOURN_SRC + "sojourn_dynamic.cu",
     "dynamic_sojourn_mc": SOJOURN_SRC + "sojourn_dynamic.cu",
     "flash_fwd": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+    "flash_dkv": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+    "flash_dq": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
     "ssd_fwd": "src/repro_torch/kernels/ssd_scan/csrc/ssd_fwd.cu",
     "moe_ffn_fwd": "src/repro_torch/kernels/moe_gemm/csrc/moe_ffn.cu",
 }
@@ -163,6 +215,14 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 #: Mixtral-8x22B's depth on one card: 12 of 56 layers, about 61 GB of bf16
 #: weights at full width.
 MIXTRAL_LAYERS = 12
+#: The training phase: Qwen3-1.7B at full width and depth at train_4k's
+#: 4,096 tokens, its global batch of 256 sequences cut to 4 a step, as 2
+#: micro-batches of 2; 9 optimizer steps, the first the warm-up, the
+#: learning rate warmed up over 2.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = "qwen3-1.7b", 4096, 4, 2
+TRAIN_STEPS, TRAIN_LR_WARMUP = 9, 2
+#: The gradient check: layers of the cut copy, and tokens of its one batch.
+GRAD_CHECK_LAYERS, GRAD_CHECK_TOKENS = 2, 512
 
 
 class PhaseFailure(RuntimeError):
@@ -335,11 +395,15 @@ def outcomes_flops(outcomes, num_stages, n_orders: int) -> float:
     return n_orders * (k_total * (2 * n + 6) + successes)
 
 
+def attention_pairs(b: int, hq: int, sq: int, skv: int, causal: bool) -> int:
+    """Visible (query, key) pairs of one attention call, over every head."""
+    return b * hq * (sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv)
+
+
 def flash_flops(b: int, hq: int, sq: int, skv: int, d: int, causal: bool) -> float:
     """Tensor-core operations of one attention forward: 2 * D for each
     visible (query, key) pair in each of QK^T and PV."""
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    return 4.0 * b * hq * d * pairs
+    return 4.0 * d * attention_pairs(b, hq, sq, skv, causal)
 
 
 def ssd_work(b, h, g, s, n, p, chunk) -> tuple[float, float, int]:
@@ -484,6 +548,16 @@ def phase_kernels(dev, report) -> None:
                             False)):
         check_flash(dev, report, shape, time_it)
 
+    # flash_dkv / flash_dq (B, Hq, Hkv, S, D, causal, window): GQA groups 1, 2,
+    # 4 and 6, head dims 128 and 64, a sliding window, a ragged length
+    for shape, time_it in (((2, 8, 8, 512, 128, True, None), True),
+                           ((1, 8, 4, 384, 128, True, 100), False),
+                           ((1, 8, 2, 256, 64, True, None), False),
+                           ((1, 12, 2, 320, 128, True, None), False),
+                           ((1, 12, 2, 200, 64, True, 64), False)):
+        check_flash_bwd(dev, report, shape, time_it)
+    check_function_grads(dev)
+
     # ssd_fwd (B, H, G, S, N, P, chunk): two groups and four chunks; ragged
     # t-blocks (chunk 100); the SMOKE widths (N 16, P 24, chunk 8) padded
     for shape, time_it in (((2, 8, 2, 1024, 128, 64, 256), True),
@@ -548,6 +622,113 @@ def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
         r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
         log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
     return out
+
+
+def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None) -> dict:
+    """``flash_dkv`` and ``flash_dq`` against their plain versions on bf16
+    inputs of ``shape`` (B, Hq, Hkv, S, D, causal, window), Sq = Skv, with
+    the LSE of the ``flash_fwd`` kernel; returns the timings asked for."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    b, hq, hkv, s, d, causal, window = shape
+    q, k, v = qkv or flash_inputs(dev, b, hq, hkv, s, s, d)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(scale=d**-0.5, causal=causal, window=window)
+    o, lse = FK.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta)
+    out = {}
+    if time_it:
+        for fn in (FK.flash_dkv, FK.flash_dq):
+            cuda_ms(lambda: fn(*args, **kw), 2)  # warm up
+        out["dkv_ms"], (dk, dv) = cuda_ms(lambda: FK.flash_dkv(*args, **kw), reps)
+        out["dq_ms"], dq = cuda_ms(lambda: FK.flash_dq(*args, **kw), reps)
+        out["dkv_plain_ms"], (dk_p, dv_p) = cuda_ms(lambda: FK.flash_dkv_torch(*args, **kw), 1)
+        out["dq_plain_ms"], dq_p = cuda_ms(lambda: FK.flash_dq_torch(*args, **kw), 1)
+    else:
+        dk, dv = FK.flash_dkv(*args, **kw)
+        dq = FK.flash_dq(*args, **kw)
+        dk_p, dv_p = FK.flash_dkv_torch(*args, **kw)
+        dq_p = FK.flash_dq_torch(*args, **kw)
+    torch.cuda.synchronize()
+    for name, pairs in (("flash_dkv", (("dK", dk, dk_p), ("dV", dv, dv_p))),
+                        ("flash_dq", (("dQ", dq, dq_p),))):
+        r = report.setdefault(name, {"max_abs_err": 0.0, "max_rel_l2": 0.0})
+        for label, got, want in pairs:
+            require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+                    f"{name} {shape}: {label} not finite float32")
+            err = rel_l2(got, want)
+            r["max_abs_err"] = max(r["max_abs_err"], float((got - want).abs().max()))
+            r["max_rel_l2"] = max(r["max_rel_l2"], err)
+            log(f"[kernel vs plain] {name} (B, Hq, Hkv, S, D, causal, window)={shape}: "
+                f"{label} rel L2 {err:.3e}")
+            require(err <= FLASH_BWD_REL_L2,
+                    f"{name} {shape}: {label} rel L2 {err:.3e} > {FLASH_BWD_REL_L2}")
+        key = "dkv" if name == "flash_dkv" else "dq"
+        if time_it and "phase1_ms" not in r:
+            r.update(phase1_shape=str(shape), phase1_ms=out[f"{key}_ms"],
+                     phase1_plain_ms=out[f"{key}_plain_ms"])
+            log(f"  {name}: kernel {r['phase1_ms']:.3f} ms, plain {r['phase1_plain_ms']:.3f} ms")
+    return out
+
+
+def check_function_grads(dev) -> None:
+    """The MoE and SSD autograd Functions (kernel forward, reference
+    backward) against autograd through their kernels' plain versions, on
+    the same bf16 inputs and cotangent weights, at mid sizes."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm import kernel as MK
+    from repro_torch.kernels.moe_gemm import moe_ffn
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def ssd_plain(x, dt, A, Bm, Cm, D, chunk):
+        """ops.ssd_scan's composition around the kernel's plain version."""
+        xk, dtk = x.transpose(1, 2).contiguous(), dt.transpose(1, 2).contiguous()
+        y, state = SK.ssd_fwd_torch(xk, dtk, dtk * A[None, :, None],
+                                    Bm.transpose(1, 2).contiguous(),
+                                    Cm.transpose(1, 2).contiguous(), chunk=chunk)
+        return (y.transpose(1, 2) + (D[None, None, :, None] * x).to(y.dtype)).to(x.dtype), state
+
+    def grads(fn, inputs, weights):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+        return torch.autograd.grad(loss, leaves)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape in ((8, 320, 1024, 2048), (3, 130, 200, 264)):
+        e, r, _, _ = shape
+        args = moe_inputs(dev, *shape, seed=4)
+        w = [torch.randn((e, r, shape[2]), generator=gen, device=dev)]
+        got, want = grads(moe_ffn, args, w), grads(MK.moe_ffn_fwd_torch, args, w)
+        errs = [rel_l2(a, b) for a, b in zip(got, want)]
+        log(f"[Function grads] moe_ffn (E, R, Dm, Dff)={shape}: rel L2 of dx, dwg, dwu, dwd "
+            f"{', '.join(f'{x:.3e}' for x in errs)}")
+        require(all(torch.isfinite(g.float()).all() for g in got) and
+                max(errs) <= MOE_GRAD_REL_L2, f"moe_ffn grads {shape}: {errs}")
+    for b, h, g, s, n, p, chunk in ((2, 8, 2, 1024, 128, 64, 256), (1, 4, 1, 300, 64, 64, 100)):
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+        dt = 0.01 + 0.19 * torch.rand((b, s, h), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev))
+        Bm, Cm = (torch.randn((b, s, g, n), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        D = torch.randn((h,), generator=gen, device=dev)
+        w = [torch.randn((b, s, h, p), generator=gen, device=dev),
+             torch.randn((b, h, n, p), generator=gen, device=dev)]
+        args = (x, dt, A, Bm, Cm, D)
+        got = grads(lambda *a: ssd_scan(*a, chunk=chunk), args, w)
+        want = grads(lambda *a: ssd_plain(*a, chunk), args, w)
+        errs = [rel_l2(a, b) for a, b in zip(got, want)]
+        log(f"[Function grads] ssd_scan (B, H, G, S, N, P, chunk)={(b, h, g, s, n, p, chunk)}: "
+            f"rel L2 of dx, ddt, dA, dB, dC, dD {', '.join(f'{x:.3e}' for x in errs)}")
+        require(all(torch.isfinite(t.float()).all() for t in got) and
+                max(errs) <= SSD_GRAD_REL_L2, f"ssd_scan grads: {errs}")
 
 
 def rel_l2(got, want) -> float:
@@ -1026,10 +1207,185 @@ def phase_serving_mixtral(dev) -> dict:
     return {"launches": counts, "dropped_share": dropped / pairs}
 
 
+def tree_names(tree, prefix: str = "") -> list[str]:
+    """Leaf names of a nested dict, in the sorted order ``tree_map`` walks."""
+    names = []
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            names += tree_names(tree[key], f"{prefix}{key}/")
+        else:
+            names.append(prefix + key)
+    return names
+
+
+class RepeatedBatch:
+    """A data source that gives ``data``'s batch of step 0 at every step.
+
+    SyntheticLM's next token hashes the whole history before it, so a
+    fresh batch a step holds nothing a model can learn in a few steps
+    (the reference's docstring: the loss drops within hundreds): over
+    fresh batches the loss only moves by their noise.  Taking the same
+    batch again, the steps must lower its loss, which shows that the
+    gradients and the update are right; the work of a step is the same."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def batch(self, step: int) -> dict:
+        return self.data.batch(0)
+
+
+def phase_training(dev) -> dict:
+    """Phase 6: Qwen3-1.7B at full width and depth trained through
+    ``repro_torch.launch.train``, the launch counts around the run; then
+    the gradient check of a cut copy against the CPU in float32."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+
+    cfg = get_config(TRAIN_ARCH)
+    require(cfg.remat == "full", f"{cfg.name} trains with remat={cfg.remat!r}, not 'full'")
+    tag = f"[training {cfg.name}]"
+    plan = train.default_plan(cfg, dev, accum_steps=TRAIN_ACCUM, warmup_steps=TRAIN_LR_WARMUP,
+                              total_steps=TRAIN_STEPS)
+    data = RepeatedBatch(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                                global_batch=TRAIN_BATCH, seed=0)))
+    trainer = train.Trainer(plan, data)
+    log(f"{tag} {cfg.n_layers} layers, {cfg.param_count() / 1e9:.4g} B parameters, remat "
+        f"{cfg.remat}; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step as {TRAIN_ACCUM} "
+        f"micro-batches; {plan.opt_cfg.moment_dtype} moments")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    params, state, history = trainer.run(TRAIN_STEPS, seed=0, log_every=1,
+                                         log=lambda m: log(f"{tag} {m}"))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    records = trainer.records
+    log(f"{tag} losses {[round(r['loss'], 4) for r in records]}")
+    log(f"{tag} gradient norms {[round(r['grad_norm'], 4) for r in records]}")
+    log(f"{tag} launches: {counts}")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records),
+            "a loss or gradient norm is not finite")
+    require(history[-1] < history[0], f"last loss {history[-1]!r} not below first {history[0]!r}")
+    per_step = {"flash_fwd": 2 * cfg.n_layers * TRAIN_ACCUM,
+                "flash_dkv": cfg.n_layers * TRAIN_ACCUM, "flash_dq": cfg.n_layers * TRAIN_ACCUM}
+    for name, n in per_step.items():
+        require(counts[name] == n * TRAIN_STEPS,
+                f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps, not {n} a step")
+    step_s = [r["seconds"] for r in records[1:]]
+    mean_s = sum(step_s) / len(step_s)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / mean_s
+    log(f"{tag} step wall time (steps 1-{TRAIN_STEPS - 1}, host clock, synchronised): mean "
+        f"{mean_s * 1e3:.1f} ms, min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}; "
+        f"warm-up step {records[0]['seconds'] * 1e3:.1f} ms; {tokens_per_s:.1f} tokens/s; peak "
+        f"allocated {peak / 1e9:.4g} GB; straggler events {trainer.straggler_events}")
+    batch = train.batch_to_device(data.batch(TRAIN_STEPS), dev)
+    dev_ms = profiled_device_ms(lambda: trainer.step_fn(params, state, batch), top=12,
+                                tag=f"{tag} profiled step:")
+    log(f"{tag} one step under torch.profiler: device busy {dev_ms!r} ms of {mean_s * 1e3:.1f} "
+        f"ms wall, share {dev_ms and dev_ms / (mean_s * 1e3)!r} (kernel and copy time)")
+    del params, state, trainer, batch
+    torch.cuda.empty_cache()
+    grad_check(dev, cfg)
+    return {"launches": counts, "step_ms": mean_s * 1e3, "tokens_per_s": tokens_per_s,
+            "peak_gb": peak / 1e9, "busy_ms": dev_ms}
+
+
+def grad_check(dev, cfg) -> None:
+    """The loss and gradients of a GRAD_CHECK_LAYERS-layer copy of ``cfg``
+    at full width on one batch: bf16 on the card through the kernels
+    against float32 on the CPU through the plain path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.init import tree_leaves, tree_map
+
+    small = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS)
+    f32 = dataclasses.replace(small, param_dtype="float32", compute_dtype="float32")
+    tag = f"[gradient check {cfg.name}, {small.n_layers} layers, 1 x {GRAD_CHECK_TOKENS}]"
+    params = T.init_params(small, torch.Generator(device=dev).manual_seed(SEED), dev)
+    host = SyntheticLM(DataConfig(vocab_size=small.vocab_size, seq_len=GRAD_CHECK_TOKENS,
+                                  global_batch=1, seed=0)).batch(0)
+    loss, _, grads = train.loss_and_grads(params, train.batch_to_device(host, dev), small)
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    loss_c, _, grads_c = train.loss_and_grads(tree_map(lambda t: t.float().to(cpu), params),
+                                              train.batch_to_device(host, cpu), f32)
+    log(f"{tag} the float32 CPU step took {time.perf_counter() - t0:.1f} s")
+    rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    log(f"{tag} loss card {float(loss)!r}, CPU {float(loss_c)!r}: rel err {rel:.3e}")
+    require(rel <= TRAIN_LOSS_REL, f"gradient check: loss rel err {rel:.3e} > {TRAIN_LOSS_REL}")
+    worst = 0.0
+    for name, g, w in zip(tree_names(params), tree_leaves(grads), tree_leaves(grads_c)):
+        require(bool(torch.isfinite(g.float()).all()), f"gradient check: {name} not finite")
+        err = rel_l2(g.float().cpu(), w)
+        worst = max(worst, err)
+        log(f"{tag} d{name} ({g.dtype}, {tuple(g.shape)}): rel L2 {err:.3e}")
+        require(err <= TRAIN_GRAD_REL_L2,
+                f"gradient check: d{name} rel L2 {err:.3e} > {TRAIN_GRAD_REL_L2}")
+    log(f"{tag} worst leaf {worst:.3e}, bar {TRAIN_GRAD_REL_L2}")
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def time_flash_bwd(dev, report, shape) -> None:
+    """``flash_dkv`` and ``flash_dq`` timed and held against their plain
+    versions at ``shape`` (B, Hq, Hkv, S, D, causal, window), one
+    Qwen3-1.7B layer's attention backward in training; SDPA's backward
+    (forward and backward minus forward) beside them; their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hq, hkv, s_, d, causal, _ = shape
+    q, k, v = flash_inputs(dev, b, hq, hkv, s_, s_, d, seed=2)
+    t = check_flash_bwd(dev, report, shape, time_it=True, qkv=(q, k, v))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), do)
+
+    for fn in (sdpa_fwd, sdpa_fwd_bwd):
+        cuda_ms(fn, 2)  # warm up
+    fwd_ms, _ = cuda_ms(sdpa_fwd, 10)
+    fwd_bwd_ms, _ = cuda_ms(sdpa_fwd_bwd, 10)
+    library_ms = fwd_bwd_ms - fwd_ms
+    pairs = attention_pairs(b, hq, s_, s_, causal)
+    row_bytes = 2 * b * hq * s_ * 4  # LSE and delta, float32
+    in_bytes = tensor_bytes((q, k, v, do)) + row_bytes
+    for name, ops, out_bytes in (("flash_dkv", 8.0 * d * pairs, 2 * k.numel() * 4),
+                                 ("flash_dq", 6.0 * d * pairs, q.numel() * 4)):
+        key = "dkv" if name == "flash_dkv" else "dq"
+        b_ms, b_by = bound_ms(ops, in_bytes, out_bytes, peak=BF16_FLOPS)
+        report[name].update(shape=str(shape), ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
+                            bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=library_ms,
+                            library="scaled_dot_product_attention backward (forward and "
+                                    "backward minus forward): dQ, dK and dV in one call")
+        log(f"[timing] {name} (B, Hq, Hkv, S, D, causal, window)={shape}: "
+            f"{t[f'{key}_ms']:.3f} ms over 10 runs, plain {t[f'{key}_plain_ms']:.1f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, {ops:.4g} bf16 tensor ops, "
+            f"{(in_bytes + out_bytes) / 1e6:.1f} MB): {b_ms / t[f'{key}_ms']:.2%} of it")
+    log(f"[timing] scaled_dot_product_attention at the training shape: forward {fwd_ms:.3f} ms, "
+        f"forward and backward {fwd_bwd_ms:.3f} ms, so the backward {library_ms:.3f} ms against "
+        f"flash_dkv + flash_dq {t['dkv_ms'] + t['dq_ms']:.3f} ms")
+    del q, k, v, qs, ks, vs, do
+    torch.cuda.empty_cache()
+
+
 def phase_timing(dev, workloads, outcomes_path, report) -> None:
-    """Phase 6: each kernel and its plain version at the largest shapes of
-    phases 3-5, the kernel's last timed result held against the plain
-    one; then the bound, and SDPA beside flash_fwd."""
+    """Phase 7: each kernel and its plain version at the largest shapes of
+    phases 3-6, the kernel's last timed result held against the plain
+    one; then the bound, and the library yardsticks."""
     import torch
     import torch.nn.functional as F
 
@@ -1092,6 +1448,8 @@ def phase_timing(dev, workloads, outcomes_path, report) -> None:
     del q, k, v
     torch.cuda.empty_cache()
 
+    time_flash_bwd(dev, report, (TRAIN_BATCH // TRAIN_ACCUM, 16, 8, TRAIN_SEQ, 128, True, None))
+
     # ssd_fwd at the Mamba2-1.3B prefill shape: one layer's scan
     shape = (SERVE_BATCH, 64, 1, SERVE_PROMPT, 128, 64, 256)
     t = check_ssd(dev, report, shape, time_it=True)
@@ -1136,10 +1494,10 @@ def phase_timing(dev, workloads, outcomes_path, report) -> None:
     torch.cuda.empty_cache()
 
 
-def profiled_device_ms(fn) -> float | None:
+def profiled_device_ms(fn, top: int = 0, tag: str = "") -> float | None:
     """Milliseconds of kernels and copies on the card during one call of
     ``fn``, from ``torch.profiler``; None when the trace holds no device
-    time."""
+    time.  With ``top``, logs the ``top`` kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1148,8 +1506,12 @@ def profiled_device_ms(fn) -> float | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in kernels)
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:top]:
+        t = e.self_device_time_total
+        log(f"{tag} {t / 1e3:9.2f} ms ({t / us:6.2%}) x{e.count:<5d} {e.key[:100]}")
     return us / 1e3 or None
 
 
@@ -1184,15 +1546,19 @@ def main() -> int:
     serving = phase_serving(dev)
     mamba = phase_serving_mamba(dev)
     mixtral = phase_serving_mixtral(dev)
+    training = phase_training(dev)
     phase_timing(dev, main_path["workloads"], outcomes_path, report)
     smi = nvidia_smi()
     flash_by_path = {"qwen3-8b": serving["launches"]["flash_fwd"],
-                     "mixtral-8x22b": mixtral["launches"]["flash_fwd"]}
+                     "mixtral-8x22b": mixtral["launches"]["flash_fwd"],
+                     "qwen3-1.7b training": training["launches"]["flash_fwd"]}
     report["flash_fwd"]["launches_by_path"] = flash_by_path
     report["moe_ffn_fwd"]["dropped_share"] = mixtral["dropped_share"]
     launches = {**main_path["launches"], "sojourn_outcomes":
                 outcomes_path["launches"]["sojourn_outcomes"],
                 "flash_fwd": sum(flash_by_path.values()),
+                "flash_dkv": training["launches"]["flash_dkv"],
+                "flash_dq": training["launches"]["flash_dq"],
                 "ssd_fwd": mamba["launches"]["ssd_fwd"],
                 "moe_ffn_fwd": mixtral["launches"]["moe_ffn_fwd"]}
     kernels = []

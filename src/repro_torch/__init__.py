@@ -7,9 +7,12 @@ imports neither JAX nor anything of ``repro``.  Its entry points take
 plain PyTorch versions of the kernels instead (see
 :mod:`repro_torch.device`).  The kernels are CUDA C++ for ``sm_90a``
 under ``kernels/<package>/csrc/`` (the fused evaluator's five in
-``sojourn_eval``, the attention forward in ``flash_attention``), built
-with ``nvcc`` at first use.  Beside the evaluator, ``models/`` and
-``launch/serve.py`` serve the dense model family on one card.
+``sojourn_eval``, the attention forward and backward in
+``flash_attention``, the SSD scan in ``ssd_scan``, the expert FFN in
+``moe_gemm``), built with ``nvcc`` at first use.  Beside the evaluator, ``models/`` and
+``launch/serve.py`` serve the dense, moe and ssm model families on one
+card, and ``launch/train.py`` (with ``optim/``, ``data/`` and ``ckpt/``)
+trains them.
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

@@ -28,4 +28,5 @@ SMOKE = ModelConfig(
     n_kv_heads=4,
     d_ff=320,
     vocab_size=512,
+    remat="none",
 )

@@ -42,4 +42,5 @@ SMOKE = ModelConfig(
     n_experts=16,
     top_k=8,
     capacity_factor=8.0,
+    remat="none",
 )

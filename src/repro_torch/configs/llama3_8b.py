@@ -29,4 +29,5 @@ SMOKE = ModelConfig(
     d_ff=448,
     vocab_size=512,
     tie_embeddings=False,
+    remat="none",
 )

@@ -40,4 +40,5 @@ SMOKE = ModelConfig(
     ssm_groups=1,
     ssm_conv=4,
     ssm_chunk=8,
+    remat="none",
 )

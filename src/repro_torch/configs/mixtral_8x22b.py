@@ -38,4 +38,5 @@ SMOKE = ModelConfig(
     n_experts=4,
     top_k=2,
     capacity_factor=8.0,
+    remat="none",
 )

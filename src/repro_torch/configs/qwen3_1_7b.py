@@ -31,4 +31,5 @@ SMOKE = ModelConfig(
     d_ff=256,
     vocab_size=512,
     qk_norm=True,
+    remat="none",
 )

@@ -32,4 +32,5 @@ SMOKE = ModelConfig(
     vocab_size=512,
     qk_norm=True,
     tie_embeddings=False,
+    remat="none",
 )

@@ -1,13 +1,18 @@
-"""Public SSD op, forward only.
+"""Public SSD op with its backward.
 
 The counterpart of ``repro/kernels/ssd_scan/ops.py``, with the device in
 place of the ``impl`` dispatch: CUDA tensors launch the ``ssd_fwd``
 kernel (or raise); CPU tensors run its plain version.  The public face
-keeps the models' layout (B, S, H, P); this module transposes into the
+keeps the models' layout (B, S, H, P); the forward transposes into the
 kernel's (B, H, S, P), forms ``dA = dt * A``, and adds the ``D * x`` skip
 in the working type after the kernel's y, as ``_ssd_pallas_fwd`` does
-(``ops.py:37-47``), so the numbers are those the TPU path computes.  The
-backward (recompute through :func:`ref.ssd_chunked`) comes with training.
+(``ops.py:37-47``), so the numbers are those the TPU path computes.
+
+``_SSDScan`` is the counterpart of ``_ssd_pallas`` with its custom VJP:
+the backward recomputes through :func:`ref.ssd_chunked` under autograd
+(``_ssd_pallas_bwd``, ``ops.py:50-58``), taking the cotangents of y and
+of the final state and giving the gradients of x, dt, A, Bm, Cm and D.
+The reference has no backward kernel, and neither has the port.
 """
 
 from __future__ import annotations
@@ -15,8 +20,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ssd_scan import kernel as K
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 __all__ = ["ssd_scan"]
+
+
+def _forward(x, dt, A, Bm, Cm, D, chunk: int):
+    xk = x.transpose(1, 2).contiguous()  # (B, H, S, P)
+    dtk = dt.transpose(1, 2).contiguous()  # (B, H, S)
+    dak = dtk * A[None, :, None].to(dtk.dtype)
+    Bk = Bm.transpose(1, 2).contiguous()  # (B, G, S, N)
+    Ck = Cm.transpose(1, 2).contiguous()
+    y, state = K.ssd_fwd(xk, dtk, dak, Bk, Ck, chunk=chunk)
+    y = y.transpose(1, 2) + (D[None, None, :, None] * x).to(y.dtype)
+    return y.to(x.dtype), state
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk: int):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, Bm, Cm, D, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = ssd_chunked(*inputs, chunk=ctx.chunk)
+        return (*torch.autograd.grad((y, state), inputs, (dy, dstate)), None)
 
 
 def ssd_scan(
@@ -30,12 +62,5 @@ def ssd_scan(
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan; returns (y (B, S, H, P) in x's type, final state
-    (B, H, N, P) float32)."""
-    xk = x.transpose(1, 2).contiguous()  # (B, H, S, P)
-    dtk = dt.transpose(1, 2).contiguous()  # (B, H, S)
-    dak = dtk * A[None, :, None].to(dtk.dtype)
-    Bk = Bm.transpose(1, 2).contiguous()  # (B, G, S, N)
-    Ck = Cm.transpose(1, 2).contiguous()
-    y, state = K.ssd_fwd(xk, dtk, dak, Bk, Ck, chunk=chunk)
-    y = y.transpose(1, 2) + (D[None, None, :, None] * x).to(y.dtype)
-    return y.to(x.dtype), state
+    (B, H, N, P) float32), both differentiable in every input."""
+    return _SSDScan.apply(x, dt, A, Bm, Cm, D, chunk)

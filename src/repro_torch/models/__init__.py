@@ -1,12 +1,18 @@
-"""Model plane of the port: the dense decoder family, for serving.
+"""Model plane of the port: the dense, moe and ssm families, for serving
+and training.
 
-* :mod:`repro_torch.models.config`      — ModelConfig (dense family)
+* :mod:`repro_torch.models.config`      — ModelConfig
 * :mod:`repro_torch.models.init`        — ParamSpec trees, materialization,
   and :func:`~repro_torch.models.init.from_reference`
-* :mod:`repro_torch.models.layers`      — RMSNorm, RoPE, SwiGLU MLP, embeddings
-* :mod:`repro_torch.models.attention`   — GQA self-attention (prefill through
-  the ``flash_fwd`` kernel) and one-token decode against a KV cache
-* :mod:`repro_torch.models.transformer` — block assembly, prefill, decode
+* :mod:`repro_torch.models.layers`      — RMSNorm, RoPE, SwiGLU MLP, embeddings,
+  cross-entropy
+* :mod:`repro_torch.models.attention`   — GQA self-attention (through the
+  ``flash_fwd`` kernel, and ``flash_dkv`` / ``flash_dq`` in the backward) and
+  one-token decode against a KV cache
+* :mod:`repro_torch.models.moe`         — router, capacity dispatch, expert FFN
+* :mod:`repro_torch.models.ssm`         — the Mamba-2 mixer
+* :mod:`repro_torch.models.transformer` — block assembly, ``lm_loss``, prefill,
+  decode
 """
 
 from repro_torch.models.config import ModelConfig  # noqa: F401

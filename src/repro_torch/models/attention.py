@@ -1,8 +1,9 @@
-"""GQA self-attention: full-sequence (prefill) and one-token decode.
+"""GQA self-attention: full-sequence (prefill, training) and one-token decode.
 
 The counterpart of ``repro/models/attention.py`` for the dense family on
-one device.  Prefill attention goes through the ``flash_fwd`` kernel
-(:func:`repro_torch.kernels.flash_attention.flash_attention`); decode
+one device.  Full-sequence attention goes through the ``flash_fwd``
+kernel, and in training its backward through ``flash_dkv`` and
+``flash_dq`` (:func:`repro_torch.kernels.flash_attention.flash_attention`); decode
 attends one new token over the KV cache with the plain
 :func:`~repro_torch.kernels.flash_attention.ref.ref_attention`, as the
 reference's ``attn_decode`` does.  Cross attention and the

@@ -6,8 +6,10 @@ mixture-of-experts decoder (Mixtral, Kimi-K2) and the pure Mamba-2 stack
 (Mamba2).  The dtypes are ``torch.dtype`` properties
 (:attr:`ModelConfig.dtype`, :attr:`ModelConfig.pdtype`) made from the
 reference's dtype names, so a config written for one package reads the
-same in the other.  The other families of the reference (hybrid, encdec,
-vlm) come with a later slice of the port: a config of theirs raises
+same in the other.  ``remat`` and ``logit_chunk`` are read by training
+(:func:`repro_torch.models.transformer.lm_loss`), with the reference's
+defaults.  The other families of the reference (hybrid, encdec, vlm)
+come with a later slice of the port: a config of theirs raises
 ``NotImplementedError``, and so does :mod:`repro_torch.configs.registry`
 for their architectures.  There are no ``*_impl`` fields: the device
 decides between a kernel and its plain version.
@@ -23,6 +25,8 @@ __all__ = ["ModelConfig", "FAMILIES"]
 
 #: Families this package builds.
 FAMILIES = ("dense", "moe", "ssm")
+#: What a training block saves for the backward (``transformer._maybe_remat``).
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,15 +63,20 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 128
 
+    # --- numerics / execution ------------------------------------------------
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: str = "full"  # "none" | "full" | "dots": what a training block keeps
     vocab_pad_multiple: int = 256
+    logit_chunk: int = 0  # 0 = unchunked cross-entropy; >0 = vocab chunking
 
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise NotImplementedError(f"family {self.family!r} is not ported; see ROADMAP")
         if self.family != "ssm" and self.n_heads % max(self.n_kv_heads, 1):
             raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.remat not in REMAT:
+            raise ValueError(f"remat={self.remat!r}; options: {REMAT}")
         for field in ("param_dtype", "compute_dtype"):
             if not isinstance(getattr(torch, getattr(self, field), None), torch.dtype):
                 raise ValueError(f"{field}={getattr(self, field)!r} is not a torch dtype")

@@ -18,7 +18,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "materialize", "from_reference", "tree_map", "tree_bytes"]
+__all__ = ["ParamSpec", "materialize", "from_reference", "tree_map", "tree_leaves",
+           "tree_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +44,13 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
                 raise ValueError(f"tree structures differ: {sorted(tree)}")
         return {k: tree_map(fn, tree[k], *(o[k] for o in rest)) for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of nested dicts, in the order :func:`tree_map` visits them."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def tree_bytes(tree: Any) -> int:

@@ -1,9 +1,8 @@
-"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, cross-entropy.
 
-The counterpart of ``repro/models/layers.py`` for serving: the same
-arithmetic (norms and RoPE in float32, cast back to the input type;
-matrix products in the working type; float32 logits).  The losses come
-with training.
+The counterpart of ``repro/models/layers.py``: the same arithmetic (norms
+and RoPE in float32, cast back to the input type; matrix products in the
+working type; float32 logits and losses).
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ __all__ = [
     "embed_specs",
     "embed_tokens",
     "unembed",
+    "cross_entropy",
+    "chunked_cross_entropy",
 ]
 
 
@@ -92,3 +93,53 @@ def unembed(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``layers.py:91``); the product itself runs in the working type."""
     w = p["head"] if "head" in p else p["tok"].T
     return (x @ w).float()
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32; labels < 0 or ~valid are masked."""
+    if valid is None:
+        valid = labels >= 0
+    lab = labels.clamp(min=0).long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, lab[..., None])[..., 0]
+    nll = (lse - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor,  # (B, S, D) final hidden states
+    w: torch.Tensor,  # (D, V) unembedding
+    labels: torch.Tensor,  # (B, S)
+    valid: torch.Tensor | None,
+    chunk: int,
+) -> torch.Tensor:
+    """Cross-entropy over the vocabulary in chunks of ``chunk``: a running
+    logsumexp and the gold logit gathered chunk by chunk, as the
+    reference's ``lax.scan`` (a Python loop here)."""
+    if valid is None:
+        valid = labels >= 0
+    b, s, _ = x.shape
+    v = w.shape[-1]
+    if v % chunk:
+        raise ValueError(f"vocab {v} not divisible by chunk {chunk}")
+    lab = labels.clamp(min=0).long()
+    m = torch.full((b, s), -torch.inf, dtype=torch.float32, device=x.device)
+    l = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    for c0 in range(0, v, chunk):
+        lg = (x @ w[:, c0 : c0 + chunk]).float()  # (B, S, chunk)
+        m_new = torch.maximum(m, lg.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(dim=-1)
+        in_chunk = (lab >= c0) & (lab < c0 + chunk)
+        local = torch.gather(lg, -1, (lab - c0).clamp(0, chunk - 1)[..., None])[..., 0]
+        gold = torch.where(in_chunk, local, gold)
+        m = m_new
+    nll = (m + torch.log(l.clamp(min=1e-30)) - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)

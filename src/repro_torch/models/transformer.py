@@ -1,5 +1,5 @@
-"""Block assembly of the dense, moe and ssm families: specs, prefill
-forward, decode.
+"""Block assembly of the dense, moe and ssm families: specs, forward,
+loss, prefill, decode.
 
 The counterpart of ``repro/models/transformer.py`` for the families whose
 layers are uniform, on one device (sharding comes later: ROADMAP Queue 1
@@ -14,26 +14,36 @@ kinds per family are the reference's ``_uniform_kind``:
   load-balancing loss :func:`forward` sums over the layers;
 * ssm:   the Mamba-2 mixer (:mod:`.ssm`) alone.
 
-Two modes share the block code: ``forward(mode="prefill")`` runs the
-prompt and hands back every layer's cache entry (attention K/V, or the
-Mamba conv tails and float32 state), ``decode_step`` runs one token
-against the cache and updates the cache IN PLACE.  The hybrid, vlm and
-encdec families never reach this module: their :class:`ModelConfig`
-raises ``NotImplementedError``.
+Three modes share the block code: ``forward(mode="train")`` (what
+:func:`lm_loss` runs) builds no cache and runs each block under
+``cfg.remat``; ``forward(mode="prefill")`` runs the prompt and hands back
+every layer's cache entry (attention K/V, or the Mamba conv tails and
+float32 state); ``decode_step`` runs one token against the cache and
+updates the cache IN PLACE.  The hybrid, vlm and encdec families never
+reach this module: their :class:`ModelConfig` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.init import ParamSpec, materialize, tree_map
+from repro_torch.models.init import ParamSpec, materialize, tree_leaves, tree_map
 from repro_torch.models.layers import (
+    chunked_cross_entropy,
+    cross_entropy,
     embed_specs,
     embed_tokens,
     mlp_apply,
@@ -46,6 +56,7 @@ __all__ = [
     "param_specs",
     "init_params",
     "forward",
+    "lm_loss",
     "init_cache",
     "prefill",
     "decode_step",
@@ -88,8 +99,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     return materialize(param_specs(cfg), generator, device)
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    return tree_map(lambda a: a[i], stacked)
+def _unstack(stacked: dict) -> list[dict]:
+    """The per-layer parameter trees of the stacked ``layers`` leaves.  One
+    ``unbind`` per leaf, so that autograd stacks the layers' gradients once
+    (indexing each layer instead would add a leaf-sized zero tensor a
+    layer)."""
+    layers = tree_map(lambda a: a.unbind(0), stacked)
+    n = len(tree_leaves(layers)[0])
+    return [tree_map(lambda t, i=i: t[i], layers) for i in range(n)]
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str | None):
@@ -101,6 +118,46 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str | None):
         out, aux = moe_mod.moe_apply(lp["ffn"], h, cfg)
         return x + out, aux
     return x + mlp_apply(lp["ffn"], h), 0.0
+
+
+def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, mode: str):
+    """One layer: ``(x, aux loss, cache entry)``, the entry None unless
+    ``mode="prefill"``."""
+    mixer, ffn = _uniform_kind(cfg)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    entry = None
+    if mixer == "mamba":
+        if mode == "prefill":
+            out, entry = ssm_mod.ssm_apply(lp["mamba"], h, cfg, return_cache=True)
+        else:
+            out = ssm_mod.ssm_apply(lp["mamba"], h, cfg)
+    else:
+        out, kv = attn.attn_apply(lp["attn"], h, cfg, positions, window=cfg.sliding_window)
+        if mode == "prefill":
+            entry = kv
+    x, aux = _ffn(lp, x + out, cfg, ffn)
+    return x, aux, entry
+
+
+#: Products whose outputs ``remat="dots"`` keeps (JAX's ``checkpoint_dots``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """The reference's ``_maybe_remat`` (``transformer.py:237-243``): "full"
+    keeps each block's inputs only and recomputes the block in the
+    backward; "dots" keeps the outputs of its matrix products as well."""
+    if cfg.remat == "none":
+        return fn
+    kwargs = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+    return lambda *args: checkpoint(fn, *args, **kwargs)
 
 
 def forward(
@@ -116,31 +173,47 @@ def forward(
     loss summed over the layers (0.0 where there is none), and with
     ``mode="prefill"`` each layer's cache entry (attention ``(k, v)``
     (B, S, Hkv, hd), or the Mamba ``{"conv_x", "conv_bc", "state"}``),
-    else None."""
+    else None.  ``mode="train"`` builds no cache entry and runs each
+    block under ``cfg.remat``."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"unknown mode {mode!r}")
-    mixer, ffn = _uniform_kind(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+
+    def body(lp, x):
+        return _block(lp, x, positions, cfg, mode)
+
+    if mode == "train":
+        body = _maybe_remat(body, cfg)
     caches = [] if mode == "prefill" else None
     aux = 0.0
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if mixer == "mamba":
-            out, entry = ssm_mod.ssm_apply(lp["mamba"], h, cfg, return_cache=True)
-        else:
-            out, entry = attn.attn_apply(lp["attn"], h, cfg, positions,
-                                         window=cfg.sliding_window)
-        x, aux_l = _ffn(lp, x + out, cfg, ffn)
+    for lp in _unstack(params["layers"]):
+        x, aux_l, entry = body(lp, x)
         aux = aux + aux_l
         if caches is not None:
             caches.append(entry)
     x = rms_norm(x, params["embed"]["final_norm"], cfg.norm_eps)
     return x, aux, caches
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (+ MoE aux), as the reference's
+    ``lm_loss`` (``transformer.py:396-413``).  batch: tokens, labels (B,
+    S), a label < 0 masked.  Returns ``(loss, {"ce", "aux", "loss"})``."""
+    x, aux, _ = forward(params, batch, cfg, mode="train")
+    labels = batch["labels"]
+    if cfg.logit_chunk:
+        w = params["embed"].get("head")
+        if w is None:
+            w = params["embed"]["tok"].T
+        ce = chunked_cross_entropy(x, w, labels, None, cfg.logit_chunk)
+    else:
+        ce = cross_entropy(unembed(params["embed"], x, cfg), labels)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -203,11 +276,10 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, pos: int,
     mixer, ffn = _uniform_kind(cfg)
     x = embed_tokens(params["embed"], token, cfg)
     layers = cache["layers"]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unstack(params["layers"])):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if mixer == "mamba":
-            out, _ = ssm_mod.ssm_decode(lp["mamba"], h, _layer(layers, i), cfg)
+            out, _ = ssm_mod.ssm_decode(lp["mamba"], h, tree_map(lambda a: a[i], layers), cfg)
         else:
             out, _, _ = attn.attn_decode(lp["attn"], h, layers["k"][i], layers["v"][i], pos,
                                          cfg, ring=cfg.sliding_window is not None)

@@ -1,4 +1,4 @@
-"""Port parity of the attention kernel's plain version and the oracles.
+"""Port parity of the attention kernels' plain versions and the oracles.
 
 The same inputs, made with NumPy from a seed, go through the JAX
 package's Pallas ``flash_fwd`` in interpret mode (with the port's
@@ -13,6 +13,7 @@ kept in float32, to 1e-5.  The CUDA kernel is held against the plain
 version on the card by ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,4 +138,104 @@ def test_wrapper_never_falls_back_off_the_cpu():
     q, k, v = (torch.tensor(a).to("meta") for a in _qkv(1, 4, 2, 8, 8, 8, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         K.flash_fwd(q, k, v, scale=1.0, causal=True, window=None)
-    assert K.launches == {"flash_fwd": 0}
+    assert K.launches == {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
+
+
+# ---------------------------------------------------------------------------
+# Backward: flash_dkv / flash_dq and the autograd Function
+# ---------------------------------------------------------------------------
+#
+# float32, the port's 64 x 64 tiles on both sides; the reference's LSE
+# and delta = rowsum(dO * O) feed both.  dQ, dK and dV agree to 1e-5 of
+# their largest magnitude (float32 sums in another order).  The Function's
+# gradients against jax.grad of the reference's op in interpret mode (its
+# custom VJP, the Pallas dkv/dq kernels), to 1e-4 (the two forwards and
+# the loss add their float32 roundings).
+
+BWD_CASES = [
+    # hq, hkv, s, causal, window
+    pytest.param(4, 4, 128, True, None, id="causal-g1"),
+    pytest.param(4, 2, 128, True, None, id="causal-g2"),
+    pytest.param(8, 2, 128, True, None, id="causal-g4"),
+    pytest.param(4, 2, 128, True, 40, id="causal-window-g2"),
+    pytest.param(6, 2, 128, False, None, id="noncausal-g3"),
+    pytest.param(4, 1, 128, False, 48, id="window-only-g4"),
+]
+
+
+def _close_scaled(got, want, rtol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = float(np.max(np.abs(want)))
+    assert float(np.max(np.abs(got - want))) <= rtol * scale, (
+        float(np.max(np.abs(got - want))), scale)
+
+
+@pytest.mark.parametrize("hq,hkv,s,causal,window", BWD_CASES)
+def test_backward_plain_matches_reference_kernels(hq, hkv, s, causal, window):
+    q, k, v = _qkv(2, hq, hkv, s, s, 16, seed=hq * s + hkv)
+    do = np.random.default_rng(s).standard_normal(q.shape).astype(np.float32)
+    kw = dict(scale=16 ** -0.5, causal=causal, window=window)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = ref_kernel.flash_fwd(jq, jk, jv, block_q=K.BLOCK_Q, block_k=K.BLOCK_K,
+                                  interpret=True, **kw)
+    delta = jnp.sum(jdo * o, axis=-1)
+    blocks = dict(block_q=K.BLOCK_Q, block_k=K.BLOCK_K, interpret=True)
+    dk_want, dv_want = ref_kernel.flash_dkv(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
+    dq_want = ref_kernel.flash_dq(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
+    args = [torch.tensor(a) for a in (q, k, v, do)] + [torch.tensor(np.asarray(lse)),
+                                                       torch.tensor(np.asarray(delta))]
+    dk, dv = K.flash_dkv(*args, **kw)
+    dq = K.flash_dq(*args, **kw)
+    assert dk.dtype == dv.dtype == dq.dtype == torch.float32
+    for got, want in ((dq, dq_want), (dk, dk_want), (dv, dv_want)):
+        _close_scaled(got.numpy(), want, RTOL)
+
+
+@pytest.mark.parametrize("hq,hkv,s,causal,window", BWD_CASES[1:4])
+def test_attention_gradients_match_reference_op(hq, hkv, s, causal, window):
+    """The Function (forward kernel, dkv and dq kernels: their plain
+    versions here) against jax.grad through the reference's Pallas op."""
+    from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
+
+    q, k, v = _qkv(2, hq, hkv, s, s, 16, seed=7, layout="bshd")
+    w = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+
+    def loss_ref(q, k, v):
+        o = ref_flash_attention(q, k, v, causal=causal, window=window, impl="interpret",
+                                block_q=K.BLOCK_Q, block_k=K.BLOCK_K)
+        return jnp.sum(o * w)
+
+    want = jax.grad(loss_ref, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    (flash_attention(*ts, causal=causal, window=window) * torch.tensor(w)).sum().backward()
+    for t, g in zip(ts, want):
+        assert t.grad.dtype == torch.float32 and t.grad.shape == t.shape
+        _close_scaled(t.grad.numpy(), g, 1e-4)
+
+
+def test_attention_gradients_keep_the_input_type():
+    """bf16 inputs get bf16 gradients in the (B, S, H, D) layout, within
+    bf16 rounding (2e-2 of the largest) of the float32 ones."""
+    q, k, v = _qkv(1, 4, 2, 128, 128, 32, seed=11, layout="bshd")
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = [torch.tensor(a).to(dtype).requires_grad_(True) for a in (q, k, v)]
+        flash_attention(*ts).float().square().sum().backward()
+        grads[dtype] = [t.grad for t in ts]
+    for lo, hi in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert lo.dtype == torch.bfloat16 and lo.shape == hi.shape
+        _close_scaled(lo.float().numpy(), hi.numpy(), 2e-2)
+
+
+def test_backward_wrappers_never_fall_back_off_the_cpu():
+    q, k, v = (torch.tensor(a).to("meta") for a in _qkv(1, 4, 2, 8, 8, 8, seed=0))
+    rows = torch.zeros((1, 4, 8), device="meta")
+    for fn in (K.flash_dkv, K.flash_dq):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, k, v, q, rows, rows, scale=1.0, causal=True, window=None)
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 4, 2, 8, 8, 8, seed=0))
+    with pytest.raises(ValueError, match="float32"):  # a row of LSE missing
+        K.flash_dq(q, k, v, q, torch.zeros(1, 4, 7), torch.zeros(1, 4, 8), scale=1.0,
+                   causal=True, window=None)
+    assert K.launches == {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}

@@ -51,6 +51,25 @@ def test_import_leaves_out_jax_and_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_training_modules_leave_out_jax_and_repro():
+    """The training path (optimizer, data, checkpoints, trainer) imports
+    neither JAX nor the reference, and its CLI runs on the CPU without
+    them."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.train, repro_torch.optim, repro_torch.data.pipeline\n"
+        "import repro_torch.ckpt, repro_torch.optim.schedule\n"
+        "repro_torch.launch.train.main(['--smoke', '--device', 'cpu', '--steps', '1',\n"
+        "                               '--batch', '2', '--seq', '16'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))

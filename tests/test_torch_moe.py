@@ -163,3 +163,44 @@ def test_capacity_as_the_reference():
     for n in (4, 4 * 2049, 8192):
         g, cap = moe.capacity(no_drop, n)
         assert cap >= g  # every token fits its expert
+
+
+# ---------------------------------------------------------------------------
+# Backward: the autograd Function (kernel forward, oracle backward)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("e,c,dm,df", [pytest.param(4, 128, 64, 256, id="e4-cap128"),
+                                       pytest.param(2, 256, 128, 128, id="e2-cap256")])
+def test_moe_ffn_gradients_match_reference_op(e, c, dm, df):
+    """float32: the Function's gradients against jax.grad through the
+    reference's Pallas op in interpret mode (its custom VJP recomputes
+    through the oracle, as the port's does), to 1e-5 of the largest."""
+    arrays = _ffn_inputs(e, c, dm, df, seed=8)
+    w = np.random.default_rng(9).standard_normal((e, c, dm)).astype(np.float32)
+
+    def loss_ref(*a):
+        return jnp.sum(ref_moe_ffn(*a, impl="interpret") * w)
+
+    want = jax.grad(loss_ref, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays))
+    ts = [torch.tensor(a, requires_grad=True) for a in arrays]
+    (moe_ffn(*ts) * torch.tensor(w)).sum().backward()
+    for t, g in zip(ts, want):
+        assert t.grad.shape == t.shape
+        _close(t.grad.numpy(), g)
+
+
+def test_moe_ffn_backward_recomputes_through_the_oracle():
+    """bf16: the gradients are those of ``moe_ffn_ref`` (which rounds the
+    gate and up products to bf16, ROADMAP R5), bit for bit, whatever the
+    forward computed."""
+    arrays = _ffn_inputs(2, 24, 32, 64, seed=10)
+    ts = [torch.tensor(a).to(torch.bfloat16).requires_grad_(True) for a in arrays]
+    moe_ffn(*ts).float().square().sum().backward()
+    got = [t.grad for t in ts]
+    ts2 = [t.detach().clone().requires_grad_(True) for t in ts]
+    out = ref.moe_ffn_ref(*ts2)
+    out.backward(2 * moe_ffn(*ts2).detach().float().to(out.dtype))
+    for a, b in zip(got, (t.grad for t in ts2)):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b)
