@@ -30,11 +30,18 @@ exactly the reference's order, so one seed gives the reference's numbers.
 
 Conventions: a combination with zero successful jobs contributes 0 (the
 paper's Eqs. (7)-(9) sum from l >= 1 successes).
+
+One departure from the reference, on purpose: the combination count K
+is a Python integer (``math.prod``), where the reference takes
+``np.prod`` in int64, which wraps at 63 or more two-stage jobs and then
+raises ``OverflowError``.  Here such groups go to the streamed
+Monte-Carlo tier, as any K above ``MAX_EXACT_COMBOS`` does.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -74,7 +81,8 @@ def _enum_meta(jobs: Workload) -> tuple[int, np.ndarray, np.ndarray]:
 
     def compute():
         _, _, num_stages = policies.padded_arrays(jobs)
-        k_total = int(np.prod(num_stages, dtype=np.int64))
+        # a Python int: np.prod in int64 wraps at 63 two-stage jobs
+        k_total = math.prod(int(m) for m in num_stages)
         return k_total, mixed_radix_strides(num_stages), num_stages
 
     return policies.workload_cached("enum_meta", jobs, compute)

@@ -4,7 +4,9 @@
 // Replaces the TPU kernels of repro/kernels/flash_attention/kernel.py:
 //   flash_dkv (_dkv_kernel) -> flash_dkv_launch
 //   flash_dq  (_dq_kernel)  -> flash_dq_launch
-// Layout (B, H, S, D), row-major, as flash_fwd.cu.  Inputs q, k, v, dO in
+// Layout (B, H, S, D), row-major, as flash_fwd.cu, with D in {64, 112, 128}
+// (every loop over D runs D / 16 k-steps and D / 8 n-tiles, so 112 needs no
+// padding: 7 and 14).  Inputs q, k, v, dO in
 // bf16, the forward's log-sum-exp and delta = rowsum(dO * O) (B, Hq, Sq) in
 // f32.  Outputs dK, dV (B, Hkv, Skv, D) and dQ (B, Hq, Sq, D) in f32, the
 // Pallas kernels' output type.  GQA: query head h reads KV head
@@ -441,7 +443,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 
 }  // namespace flash_bwd
 
-// dK, dV of attention for bf16 (B, H, S, D) q, k, v, dO with D in {64, 128},
+// dK, dV of attention for bf16 (B, H, S, D) q, k, v, dO with D in {64, 112, 128},
 // f32 LSE and delta (B, Hq, Sq); writes f32 dK, dV (B, Hkv, Skv, D).  Returns
 // a cudaError_t as int (cudaErrorInvalidValue for any other D).  No
 // synchronisation.
@@ -452,6 +454,9 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128)
     return flash_bwd::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq,
+                                      skv, scale, causal, has_window, window, st);
+  if (d == 112)
+    return flash_bwd::launch_dkv<112>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq,
                                       skv, scale, causal, has_window, window, st);
   if (d == 64)
     return flash_bwd::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq,
@@ -467,6 +472,9 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128)
     return flash_bwd::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,
+                                     scale, causal, has_window, window, st);
+  if (d == 112)
+    return flash_bwd::launch_dq<112>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,
                                      scale, causal, has_window, window, st);
   if (d == 64)
     return flash_bwd::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,

@@ -11,18 +11,20 @@ sliding-window masking (key j visible to query i iff ``j <= i`` and
 log-sum-exp (B, Hq, Sq).
 
 Dispatch is by device: a CUDA tensor launches the kernel (bf16, head dim
-64 or 128) or raises; a CPU tensor runs the plain PyTorch version,
-:func:`flash_fwd_torch`, which walks the same (BLOCK_Q, BLOCK_K) tiles
-with the same online softmax, block skipping and NEG_INF / 1e-30
-conventions, so the two agree even on a row that sees no key.
-``launches`` counts kernel launches and nothing else.
+64, 112 or 128: every registered config at full width) or raises; a CPU
+tensor runs the plain PyTorch version, :func:`flash_fwd_torch`, which
+walks the forward kernel's (FWD_BLOCK_Q, FWD_BLOCK_K) tiles with the same
+online softmax, block skipping and NEG_INF / 1e-30 conventions, so the
+two agree even on a row that sees no key.  ``launches`` counts kernel
+launches and nothing else.
 
 The backward takes the forward's LSE and ``delta = rowsum(dO * O)``
 (B, Hq, Sq) float32 and returns float32 gradients, as the Pallas kernels
 do: ``flash_dkv`` gives dK, dV (B, Hkv, Skv, D), summed over the query
 heads of each KV head's group, and ``flash_dq`` gives dQ (B, Hq, Sq, D).
 Their plain versions, :func:`flash_dkv_torch` and :func:`flash_dq_torch`,
-walk the same 64-key blocks with the same block skipping and keep P and
+walk the backward kernels' (BLOCK_Q, BLOCK_K) = 64-row, 64-key blocks with
+the same block skipping and keep P and
 dS in float32, as the Pallas bodies write them; the kernels round P and
 dS to bf16 before their tensor-core products.
 """
@@ -35,16 +37,21 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["BLOCK_Q", "BLOCK_K", "NEG_INF", "launches", "flash_fwd", "flash_fwd_torch",
-           "flash_dkv", "flash_dkv_torch", "flash_dq", "flash_dq_torch"]
+__all__ = ["FWD_BLOCK_Q", "FWD_BLOCK_K", "BLOCK_Q", "BLOCK_K", "NEG_INF", "launches",
+           "flash_fwd", "flash_fwd_torch", "flash_dkv", "flash_dkv_torch", "flash_dq",
+           "flash_dq_torch"]
 
-#: Query rows and keys of a tile (``kBQ`` / ``kBK`` in the source).
+#: Query rows of a forward CTA and keys of its tiles (``kBQ`` / ``kBK`` in
+#: flash_fwd.cu).
+FWD_BLOCK_Q = 128
+FWD_BLOCK_K = 128
+#: Query rows and keys of a backward block (``kBlock`` in flash_bwd.cu).
 BLOCK_Q = 64
 BLOCK_K = 64
 #: Large-but-finite mask value: avoids NaN from (-inf) - (-inf).
 NEG_INF = -1e30
-#: Head dims the kernel is compiled for.
-KERNEL_HEAD_DIMS = (64, 128)
+#: Head dims the kernels are compiled for.
+KERNEL_HEAD_DIMS = (64, 112, 128)
 #: Kernel launches since the last reset (set to 0 to reset).
 launches = {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
 
@@ -75,11 +82,12 @@ def _check(q, k, v):
         raise TypeError(f"q, k, v of {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _visible_blocks(sq: int, k0: int, k1: int, causal: bool, window: int | None, dev):
-    """(Sq,) bool: whether the BLOCK_Q-row query block of each row can see
-    any pair of keys [k0, k1): the kernels' block-level skip."""
-    q_start = torch.arange(sq, device=dev) // BLOCK_Q * BLOCK_Q
-    q_end = torch.clamp(q_start + BLOCK_Q, max=sq) - 1
+def _visible_blocks(sq: int, k0: int, k1: int, causal: bool, window: int | None, dev,
+                    block_q: int = BLOCK_Q):
+    """(Sq,) bool: whether the ``block_q``-row query block of each row can
+    see any pair of keys [k0, k1): the kernels' block-level skip."""
+    q_start = torch.arange(sq, device=dev) // block_q * block_q
+    q_end = torch.clamp(q_start + block_q, max=sq) - 1
     visible = torch.ones(sq, dtype=torch.bool, device=dev)
     if causal:
         visible &= k0 <= q_end
@@ -106,9 +114,11 @@ def _masked_scores(qf, kb, k0: int, scale: float, causal: bool, window: int | No
     return s
 
 
-def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None):
+def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None,
+                    block_q: int = FWD_BLOCK_Q, block_k: int = FWD_BLOCK_K):
     """Plain version of :func:`flash_fwd` on any device: the kernel's tile
-    walk, with every query block of a key block at once."""
+    walk (``block_q`` query rows, ``block_k`` keys), with every query block
+    of a key block at once."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -117,9 +127,9 @@ def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None):
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
-    for k0 in range(0, skv, BLOCK_K):
-        k1 = min(k0 + BLOCK_K, skv)
-        visible_block = _visible_blocks(sq, k0, k1, causal, window, dev)
+    for k0 in range(0, skv, block_k):
+        k1 = min(k0 + block_k, skv)
+        visible_block = _visible_blocks(sq, k0, k1, causal, window, dev, block_q)
         if not bool(visible_block.any()):
             continue
         s = _masked_scores(qf, k[:, :, k0:k1], k0, scale, causal, window)

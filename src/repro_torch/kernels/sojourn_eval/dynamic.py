@@ -12,7 +12,11 @@ completion times are Eqs. (7)-(9).
 * ``dynamic_sojourn_enum`` / ``dynamic_sojourn_mc`` — wrappers of the
   CUDA kernel in ``csrc/sojourn_dynamic.cu`` (design note there), which
   replace the TPU kernels of the same names.  A CUDA tensor launches the
-  kernel or raises; a CPU tensor runs the plain version.
+  kernel or raises; a CPU tensor runs the plain version.  Up to
+  ``REGISTER_JOBS`` jobs the kernel keeps each job's state in registers;
+  past that it keeps it in device scratch (16 bytes a job and thread,
+  which the wrapper allocates), so the job count is limited by memory
+  only, as the reference's is.
 * ``dynamic_sojourn_enum_torch`` / ``dynamic_sojourn_mc_torch`` — the
   plain versions: the identical state machine with the job axis
   vectorized (:func:`_sim_tile_torch`, the counterpart of
@@ -23,6 +27,7 @@ completion times are Eqs. (7)-(9).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -34,7 +39,7 @@ from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
 from repro_torch.obs import profiling
 
 __all__ = [
-    "MAX_JOBS",
+    "REGISTER_JOBS",
     "launches",
     "sojourn_eval_dynamic",
     "dynamic_kernel_args",
@@ -44,8 +49,12 @@ __all__ = [
     "dynamic_sojourn_mc_torch",
 ]
 
-#: Largest job count the kernel holds in registers (its NMAX templates).
-MAX_JOBS = 64
+#: Largest job count the kernel holds in registers (its NMAX templates);
+#: larger groups take its scratch path.
+REGISTER_JOBS = 64
+#: Bytes of scratch a job and thread on the scratch path: (stage, stop
+#: stage) as two int32 and busy_until as a float64.
+SCRATCH_JOB_BYTES = 16
 #: Combination indices per tile of the plain versions.
 PLAIN_TILE = 1 << 15
 
@@ -57,8 +66,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "dynamic_enum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P, _P, _P],
-    "dynamic_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _I, _I, _P, _P, _P],
+    "dynamic_enum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P, _I, _P, _P, _P],
+    "dynamic_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -188,6 +197,12 @@ def dynamic_sojourn_mc_torch(cdf, stage_durs, idx_tables, radix, seed, n_samples
 # ---------------------------------------------------------------------------
 
 
+def _scratch_per_thread(n: int) -> int:
+    """Scratch bytes a thread of the kernel needs for ``n`` jobs: none up to
+    REGISTER_JOBS (registers hold them)."""
+    return 0 if n <= REGISTER_JOBS else SCRATCH_JOB_BYTES * n
+
+
 def _check_common(tab, stage_durs, idx_tables, radix, total_stages, n_servers):
     p_pols, n, m = idx_tables.shape
     dev = idx_tables.device
@@ -195,8 +210,6 @@ def _check_common(tab, stage_durs, idx_tables, radix, total_stages, n_servers):
     K.check_tensor("stage_durs", stage_durs, torch.float64, (n, m), dev)
     K.check_tensor("probs/cdf", tab, torch.float64, (n, m), dev)
     K.check_tensor("radix", radix, torch.int32, (n,), dev)
-    if n > MAX_JOBS:
-        raise ValueError(f"the dynamic kernel holds at most {MAX_JOBS} jobs; got {n}")
     if n_servers < 1:
         raise ValueError(f"n_servers must be >= 1; got {n_servers}")
     if total_stages < 0:
@@ -231,6 +244,7 @@ def dynamic_sojourn_enum(
         (probs.data_ptr(), stage_durs.data_ptr(), idx_tables.data_ptr(),
          strides.data_ptr(), radix.data_ptr(), p_pols, n, m, k_total, total_stages,
          min(n_servers, n)),
+        scratch_per_thread=_scratch_per_thread(n),
     )
     launches["dynamic_sojourn_enum"] += 1
     return out
@@ -263,6 +277,7 @@ def dynamic_sojourn_mc(
         (cdf.data_ptr(), stage_durs.data_ptr(), idx_tables.data_ptr(),
          radix.data_ptr(), p_pols, n, m, n_samples, k0, k1, total_stages,
          min(n_servers, n)),
+        scratch_per_thread=_scratch_per_thread(n),
     )
     launches["dynamic_sojourn_mc"] += 1
     return out
@@ -326,7 +341,7 @@ def dynamic_kernel_args(probs, stage_durs, num_stages, idx_tables, device,
                 int(samples[0]), int(samples[1]), total_stages)
     return (f64(probs), f64(stage_durs), f64(idx_tables),
             i32(mixed_radix_strides(num_stages)), i32(num_stages),
-            int(np.prod(num_stages, dtype=np.int64)), total_stages)
+            math.prod(int(m) for m in num_stages), total_stages)
 
 
 def _sojourn_eval_dynamic(probs, stage_durs, num_stages, idx_tables, samples,

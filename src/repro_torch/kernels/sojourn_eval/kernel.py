@@ -38,6 +38,10 @@ __all__ = [
 THREADS = 256
 #: Blocks a launch aims for across all its orders (132 SMs on an H100).
 TARGET_BLOCKS = 4096
+#: Blocks of a launch whose threads each hold scratch in device memory
+#: (the dynamic kernel past its register templates): four an SM, so the
+#: scratch is that of the threads the card can run at once.
+SCRATCH_BLOCKS = 4 * 132
 #: Index counts must fit the kernels' 32-bit decode / counter words.
 MAX_COUNT = (1 << 31) - 1
 #: Soft cap on bytes of per-tile intermediates in the plain versions.
@@ -82,27 +86,48 @@ def check_count(name: str, count: int) -> None:
         raise ValueError(f"{name} must be in [1, 2**31); got {count}")
 
 
-def blocks_per_order(count: int, n_orders: int) -> int:
-    """Blocks of ``THREADS`` per order: enough to fill the card, at most
-    one index per thread."""
-    return max(1, min(-(-count // THREADS), -(-TARGET_BLOCKS // n_orders)))
+def blocks_per_order(count: int, n_orders: int, target: int = TARGET_BLOCKS) -> int:
+    """Blocks of ``THREADS`` per order: enough to fill the card (``target``
+    blocks in all), at most one index per thread."""
+    return max(1, min(-(-count // THREADS), -(-target // n_orders)))
 
 
-def launch(stem, signatures, entry, device, n_orders, count, args, rows=None) -> tuple:
+def launch(stem, signatures, entry, device, n_orders, count, args, rows=None,
+           scratch_per_thread=None) -> tuple:
     """Allocate the partials and the output on ``device``, call the C
     entry point ``entry`` on the current stream, raise on a CUDA error
     and return ``(e_succ, e_all)``.  No synchronisation.  ``rows`` is the
-    number of grid rows sharing the blocks (default: one per order)."""
+    number of grid rows sharing the blocks (default: one per order).
+
+    With ``scratch_per_thread`` (bytes), the entry point takes a scratch
+    pointer after ``args``: NULL for 0, else a buffer of that many bytes
+    for each thread of a grid cut to ``SCRATCH_BLOCKS`` blocks.  Raises
+    ``MemoryError`` naming the bytes when the card cannot hold it."""
     if device.type != "cuda":
         raise ValueError(f"{entry} launches on a CUDA device; got {device}")
     lib = _build.library(stem, signatures)
-    nblk = blocks_per_order(count, rows or n_orders)
+    extra = ()
+    if scratch_per_thread is None:
+        nblk = blocks_per_order(count, rows or n_orders)
+    else:
+        target = SCRATCH_BLOCKS if scratch_per_thread else TARGET_BLOCKS
+        nblk = blocks_per_order(count, rows or n_orders, target)
+        extra = (None,)
     with torch.cuda.device(device):
+        if scratch_per_thread:
+            nbytes = (rows or n_orders) * nblk * THREADS * scratch_per_thread
+            try:
+                scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+            except torch.cuda.OutOfMemoryError as err:
+                raise MemoryError(f"{entry} needs {nbytes} bytes of scratch on {device}, "
+                                  f"{scratch_per_thread} for each of its "
+                                  f"{nbytes // scratch_per_thread} threads") from err
+            extra = (scratch.data_ptr(),)
         partials = torch.empty((n_orders, nblk, 2), dtype=torch.float64, device=device)
         out = torch.empty((2, n_orders), dtype=torch.float64, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, entry)(
-            *args, nblk, partials.data_ptr(), out.data_ptr(), stream
+            *args, *extra, nblk, partials.data_ptr(), out.data_ptr(), stream
         )
     _build.check(lib, code, entry)
     return out[0], out[1]

@@ -26,6 +26,8 @@ job axis is permuted on the host per order (:func:`static_kernel_args`,
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -113,7 +115,7 @@ def static_kernel_args(sizes, probs, num_stages, orders_b, device, samples=None)
         return (*tensors, int(samples[0]), int(samples[1]))
     strides = mixed_radix_strides(num_stages).astype(np.int32)
     tensors = permuted_inputs([sizes, probs, strides, radix], orders_b, device)
-    return (*tensors, int(np.prod(num_stages, dtype=np.int64)))
+    return (*tensors, math.prod(int(m) for m in num_stages))
 
 
 def outcome_tables(outcomes, weights, num_stages, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -175,7 +177,7 @@ def _sojourn_eval(sizes, probs, num_stages, orders, samples, dev):
             raise ValueError(f"n_samples must be positive; got {count}")
         launch = K.sojourn_mc
     else:
-        count = int(np.prod(num_stages, dtype=np.int64))
+        count = math.prod(int(m) for m in num_stages)
         launch = K.sojourn_enum
     tile = min(XLA_TILE, max(BLOCK_COMBOS, 1 << (count - 1).bit_length()))
     pb = _order_batch(orders.shape[0], tile, n)

@@ -141,8 +141,4 @@ def test_wrapper_rejects_bad_inputs():
         _port((probs, durs, num_stages, tables), 0)
     with pytest.raises(ValueError, match="idx_tables"):
         _port((probs, durs, num_stages, tables[:, :2]), 1)
-    big = np.ones((D.MAX_JOBS + 1, 1))
-    with pytest.raises(ValueError, match="at most"):
-        D.sojourn_eval_dynamic(big, np.ones_like(big), np.ones(len(big), np.int64), big,
-                               samples=(SEED, 8), device="cpu")
     assert D.launches == {"dynamic_sojourn_enum": 0, "dynamic_sojourn_mc": 0}

@@ -1,10 +1,12 @@
 """Port parity of the attention kernels' plain versions and the oracles.
 
 The same inputs, made with NumPy from a seed, go through the JAX
-package's Pallas ``flash_fwd`` in interpret mode (with the port's
-64 x 64 tiles, so that block skipping and the NEG_INF conventions line
-up even on rows that see no key) and through the port's
-``flash_fwd_torch``, which is what a CPU tensor runs.  float32: O and
+package's Pallas ``flash_fwd`` in interpret mode and through the port's
+``flash_fwd_torch``, which is what a CPU tensor runs.  The first cases
+run the reference at 64 x 64 tiles against the port's forward tiles
+(128 x 128; the rows that see no key are the same under both); the
+cases at the end give the reference the port's forward tiles, so that
+block skipping and the NEG_INF conventions line up on any shape.  float32: O and
 LSE agree to 1e-5 (sums in another order).  bfloat16: P and O are
 rounded to bf16 at the same places on both sides, so O agrees to one
 bf16 ulp at |O| <= 1 (2**-7 absolute, a rounding that lands on the
@@ -239,3 +241,93 @@ def test_backward_wrappers_never_fall_back_off_the_cpu():
         K.flash_dq(q, k, v, q, torch.zeros(1, 4, 7), torch.zeros(1, 4, 8), scale=1.0,
                    causal=True, window=None)
     assert K.launches == {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's own tiles, and head dim 112 (Kimi-K2: 7168 / 64)
+# ---------------------------------------------------------------------------
+#
+# The forward kernel walks FWD_BLOCK_Q x FWD_BLOCK_K = 128 x 128 tiles, so
+# its plain version does too; here the reference's Pallas kernels take the
+# same blocks (lengths that 128 divides), so block skipping and the rows
+# that see no key line up exactly.  The backward kernels keep 64 x 64.
+
+FWD_CASES = [
+    # hq, hkv, sq, skv, causal, window
+    pytest.param(4, 2, 256, 256, True, None, id="causal-g2"),
+    pytest.param(6, 1, 256, 256, True, 100, id="causal-window-g6"),
+    pytest.param(4, 4, 128, 384, False, None, id="noncausal-sq<skv-g1"),
+    # rows i >= 159 see no key: the NEG_INF / 1e-30 conventions decide them
+    pytest.param(2, 1, 384, 128, False, 32, id="rows-without-keys"),
+]
+
+
+def _reference_fwd_blocks(q, k, v, causal, window, dtype=jnp.float32):
+    o, lse = ref_kernel.flash_fwd(
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+        scale=q.shape[-1] ** -0.5, causal=causal, window=window,
+        block_q=K.FWD_BLOCK_Q, block_k=K.FWD_BLOCK_K, interpret=True,
+    )
+    return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
+
+
+@pytest.mark.parametrize("d", [16, 112])
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window", FWD_CASES)
+def test_plain_matches_reference_kernel_at_forward_blocks(hq, hkv, sq, skv, causal, window, d):
+    q, k, v = _qkv(1, hq, hkv, sq, skv, d, seed=hq * sq + skv + d)
+    got = _port(q, k, v, causal, window)
+    want = _reference_fwd_blocks(q, k, v, causal, window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window", FWD_CASES[:2])
+def test_plain_matches_reference_kernel_at_forward_blocks_bf16_d112(hq, hkv, sq, skv, causal,
+                                                                   window):
+    q, k, v = _qkv(1, hq, hkv, sq, skv, 112, seed=sq + hq)
+    (o, lse), (o_ref, lse_ref) = (_port(q, k, v, causal, window, torch.bfloat16),
+                                  _reference_fwd_blocks(q, k, v, causal, window, jnp.bfloat16))
+    np.testing.assert_allclose(o, o_ref, rtol=0, atol=2.0**-7)
+    np.testing.assert_allclose(lse, lse_ref, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("hq,hkv,s,causal,window", [
+    pytest.param(4, 2, 128, True, None, id="causal-g2"),
+    pytest.param(4, 1, 192, True, 40, id="causal-window-g4"),
+    pytest.param(6, 6, 128, False, None, id="noncausal-g1"),
+])
+def test_backward_plain_matches_reference_kernels_d112(hq, hkv, s, causal, window):
+    """flash_dkv_torch and flash_dq_torch at D = 112 against the Pallas
+    kernels in interpret mode, both at the backward's 64 x 64 blocks, with
+    the reference forward's LSE and delta."""
+    q, k, v = _qkv(1, hq, hkv, s, s, 112, seed=s + hq)
+    do = np.random.default_rng(hq).standard_normal(q.shape).astype(np.float32)
+    kw = dict(scale=112 ** -0.5, causal=causal, window=window)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    blocks = dict(block_q=K.BLOCK_Q, block_k=K.BLOCK_K, interpret=True)
+    o, lse = ref_kernel.flash_fwd(jq, jk, jv, **blocks, **kw)
+    delta = jnp.sum(jdo * o, axis=-1)
+    dk_want, dv_want = ref_kernel.flash_dkv(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
+    dq_want = ref_kernel.flash_dq(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
+    args = [torch.tensor(a) for a in (q, k, v, do)] + [torch.tensor(np.asarray(lse)),
+                                                       torch.tensor(np.asarray(delta))]
+    dk, dv = K.flash_dkv(*args, **kw)
+    dq = K.flash_dq(*args, **kw)
+    for got, want in ((dq, dq_want), (dk, dk_want), (dv, dv_want)):
+        assert got.shape == want.shape
+        _close_scaled(got.numpy(), want, RTOL)
+
+
+def test_kernel_head_dims():
+    """The CUDA wrappers take bf16 at head dims 64, 112 and 128 and refuse
+    any other (checked before a launch, so on CPU tensors too)."""
+    assert K.KERNEL_HEAD_DIMS == (64, 112, 128)
+    for d in K.KERNEL_HEAD_DIMS:
+        q = torch.zeros((1, 2, 8, d), dtype=torch.bfloat16)
+        K._kernel_args("flash_fwd", {"q": q, "k": q, "v": q})
+    for d in (32, 96, 120, 256):
+        q = torch.zeros((1, 2, 8, d), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            K._kernel_args("flash_dq", {"q": q, "k": q, "v": q})
+    with pytest.raises(TypeError, match="bfloat16"):
+        K._kernel_args("flash_fwd", {"q": torch.zeros((1, 2, 8, 112))})

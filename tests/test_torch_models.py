@@ -194,9 +194,25 @@ def test_prefill_and_decode_match_reference(arch):
     """The slice as a whole: prefill logits and cache, then three decode
     steps, against the reference in float32.  A Mamba prompt is a whole
     number of its SMOKE chunks (8), as the reference's scan requires."""
-    ref_cfg, cfg, ref_params, params = _pair(arch, **F32)
+    _prefill_and_decode_match(arch)
+
+
+def test_kimi_k2_head_dim_112_matches_reference():
+    """Kimi-K2's head dim (7168 / 64 = 112) on its SMOKE config narrowed to
+    d_model 224 over 2 query heads and 1 KV head: prefill and decode
+    against the reference, the prefill's attention through the forward
+    kernel's plain version at D = 112."""
+    narrow = dict(d_model=224, n_heads=2, n_kv_heads=1)
+    assert registry.get_smoke("kimi-k2-1t-a32b", **narrow).hd == 112
+    assert ref_registry.get_smoke("kimi-k2-1t-a32b", **narrow).hd == 112
+    _prefill_and_decode_match("kimi-k2-1t-a32b", s=20, **narrow)
+
+
+def _prefill_and_decode_match(arch, s=None, **overrides):
+    ref_cfg, cfg, ref_params, params = _pair(arch, **F32, **overrides)
     ctx = ShardingCtx.none()
-    b, s, max_len = 2, (16 if cfg.family == "ssm" else 12), 20
+    b, max_len = 2, 20 if s is None else s + 8
+    s = s or (16 if cfg.family == "ssm" else 12)
     prompt = _tokens(cfg, b, s)
     want_logits, want_cache = ref_T.prefill(ref_params, {"tokens": jnp.asarray(prompt)},
                                             ref_cfg, ctx, max_len)
