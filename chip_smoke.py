@@ -10,14 +10,16 @@ run builds the kernels from ``src/repro_torch/kernels/*/csrc`` with
 Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
-   once) and print its registers and spills;
+   once) and print its registers and spills, and any wgmma serialization
+   ptxas reports;
 1. hold each of the ten kernels against its plain PyTorch version on
    the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
-   ROADMAP fault R2), ``flash_fwd`` in bf16 to the tolerances
+   ROADMAP fault R2, and the dynamic kernel's scratch path past 64 jobs
+   at N = 65, 80 and 160), ``flash_fwd`` in bf16 to the tolerances
    ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
-   (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64 and
-   128, ragged lengths) to ``FLASH_BWD_REL_L2``, ``ssd_fwd`` (two groups,
+   (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64, 112
+   and 128, ragged lengths) to ``FLASH_BWD_REL_L2``, ``ssd_fwd`` (two groups,
    several chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd``
    (caps 8, 40 and 320, ragged widths) to ``SSD_REL_L2`` /
    ``SSD_STATE_REL`` and ``MOE_REL_L2``.  The MoE and SSD autograd
@@ -29,14 +31,15 @@ Phases, each of which must pass:
 3. drive the evaluator's main path at full size, through the kernels
    only: ``evaluate_many`` at N=26 (K = 2**26, the exact cap), at N=8,
    M=3 with OPTIMAL (8! orders x 3**8 combinations) and at N=27
-   (K = 2**27, streamed with 2**23 samples).  Then a constant index
-   table through the dynamic kernel must give the static RANK order's
-   value at N=26;
+   (K = 2**27, streamed with 2**23 samples).  Then ``evaluate_many`` at
+   N=80 two-stage jobs (K = 2**80) must take the streamed tier, the
+   dynamic kernel its scratch path.  Then a constant index table through
+   the dynamic kernel must give the static RANK order's value at N=26;
 4. drive the explicit-outcome path: ``enumerate_outcomes`` at N=21
    (K = 2**21) evaluated for RANK and SR, and ``sample_outcomes`` with
    2**21 samples at N=27 over RANK plus 16 RANDOM orders; the table
    values must equal the exact (table-free) ones to 1e-9;
-5. serve three models with random weights through
+5. serve four models with random weights through
    ``repro_torch.launch.serve``, each 4 prompts of 2048 tokens and 32 new
    tokens, each with a decode-against-prefill check and, under
    ``torch.profiler``, the card's busy share of one more prefill and three
@@ -58,6 +61,12 @@ Phases, each of which must pass:
       capacity dropped.  Decode step 1 is held to a prefill of the prompt
       plus its token within ``MIXTRAL_REL_L2`` on a copy of the config
       whose capacity drops nothing, with 4 x 512 prompt tokens;
+   d. Kimi-K2 at full width (head dim 7168 / 64 = 112) and
+      ``KIMI_LAYERS`` of its 61 layers: ``flash_fwd`` once, ``moe_ffn_fwd``
+      twice per step over its 384 experts; the peak memory within
+      ``KIMI_PEAK_GB``; the drop share logged; decode step 1 against a
+      prefill of prompt + 1 token within ``KIMI_REL_L2`` on a no-drop copy,
+      with 4 x ``KIMI_NO_DROP_PROMPT`` prompt tokens;
 6. train Qwen3-1.7B at full width and depth through
    ``repro_torch.launch.train`` (``remat="full"``, SyntheticLM seed 0, its
    first batch at every step (``RepeatedBatch``), ``TRAIN_BATCH``
@@ -77,7 +86,8 @@ Phases, each of which must pass:
 7. time each kernel and its plain version with CUDA events at the
    largest shapes of phases 3-6 (and hold the two results against each
    other there too), time ``scaled_dot_product_attention`` beside
-   ``flash_fwd``, its backward (forward and backward minus forward)
+   ``flash_fwd`` (at the serving shape, the training shape and Kimi-K2's
+   head dim 112), its backward (forward and backward minus forward)
    beside ``flash_dkv`` and ``flash_dq``, and the three-``torch.bmm``
    composition beside ``moe_ffn_fwd`` as their library yardsticks, and
    reckon each kernel's bound.  Phase 1 times each at its mid sizes as
@@ -215,6 +225,20 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 #: Mixtral-8x22B's depth on one card: 12 of 56 layers, about 61 GB of bf16
 #: weights at full width.
 MIXTRAL_LAYERS = 12
+#: Kimi-K2 on one card: 1 of 61 layers at full width, 38.7 GB of bf16
+#: weights (384 experts of 3 x 7168 x 2048, 33.8 GB; the untied embedding
+#: and head, 4.7 GB).  Its peak must stay within KIMI_PEAK_GB (the weights,
+#: the float32 prefill logits of 4 x 2048 x 163,840, 5.4 GB, and the
+#: dispatch; 70 leaves a tenth of the card free).  Decode against prefill
+#: runs on a no-drop copy (capacity factor E / k = 48, so each of the 384
+#: experts holds every token of a group) with 4 x 128 prompt tokens, which
+#: keeps its dispatched rows at 2.8 GB.  Its bar is Mixtral's, 0.15 relative
+#: L2, set before the first reading: one layer adds less rounding than 12,
+#: and the router's near-ties move a request's logits as in Mixtral.
+KIMI_LAYERS, KIMI_PEAK_GB, KIMI_NO_DROP_PROMPT, KIMI_REL_L2 = 1, 70.0, 128, 0.15
+#: The group of evaluate_many past the int64 outcome count: 80 two-stage
+#: jobs, streamed with 2**20 samples.
+LARGE_GROUP, LARGE_GROUP_SAMPLES = 80, 1 << 20
 #: The training phase: Qwen3-1.7B at full width and depth at train_4k's
 #: 4,096 tokens, its global batch of 256 sequences cut to 4 a step, as 2
 #: micro-batches of 2; 9 optimizer steps, the first the warm-up, the
@@ -458,7 +482,8 @@ def phase_build() -> None:
         f"({_build.BUILD_DIR})")
     for stem, out in logs.items():
         for line in out.splitlines():
-            if "Compiling entry function" in line or "registers" in line or "spill" in line:
+            if any(key in line for key in ("Compiling entry function", "registers", "spill",
+                                            "Potential Performance Loss")):
                 log(f"  {stem}: {line.strip()}")
 
 
@@ -526,6 +551,32 @@ def phase_kernels(dev, report) -> None:
             D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
             dynamic_args(jobs, [table], dev))
 
+    # the dynamic kernel's scratch path past 64 jobs: a group of 65 of which
+    # 17 have two stages (K = 2**17) enumerated on 1 and 2 servers; groups of
+    # 80 and 160 two-stage jobs streamed; R2's +inf index at N = 66
+    rng = np.random.default_rng(65)
+    mixed = []
+    for i in range(65):
+        first, two = float(rng.uniform(0.5, 3.0)), i % 4 == 0
+        mixed.append(JobSpec(sizes=[first, first + 1.5] if two else [first],
+                             probs=[0.3, 0.7] if two else [1.0], job_id=i))
+    tables = [policies.index_table(mixed, "sr"), policies.index_table(mixed, "serpt")]
+    for w in (1, 2):
+        compare("dynamic_sojourn_enum", "N=65 (17 of two stages) K=2^17 P=2 (SR, SERPT)",
+                D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
+                dynamic_args(mixed, tables, dev), {"n_servers": w})
+    for n, log2_samples in ((80, 16), (160, 14)):
+        jobs = generate_workload(np.random.default_rng(n), n)
+        tables = [policies.index_table(jobs, "sr"), policies.index_table(jobs, "serpt")]
+        compare("dynamic_sojourn_mc", f"N={n} M=2 S=2^{log2_samples} P=2 (SR, SERPT)",
+                D.dynamic_sojourn_mc, D.dynamic_sojourn_mc_torch,
+                dynamic_args(jobs, tables, dev, (SEED, 1 << log2_samples)))
+    jobs = generate_workload(np.random.default_rng(66), 66)
+    jobs[9] = JobSpec(sizes=[1.0, 3.0], probs=[1.0, 0.0], job_id=jobs[9].job_id)
+    compare("dynamic_sojourn_mc", "N=66 M=2 S=2^14 P=1 (rank table with a +inf index)",
+            D.dynamic_sojourn_mc, D.dynamic_sojourn_mc_torch,
+            dynamic_args(jobs, [policies.index_table(jobs, "rank")], dev, (SEED, 1 << 14)))
+
     # explicit outcome tables: an enumerated one and a sampled one
     jobs = generate_workload(np.random.default_rng(16), 16)
     rank = policies.rank_order(jobs)
@@ -538,23 +589,30 @@ def phase_kernels(dev, report) -> None:
                 outcomes_args(jobs, orders, outcomes, weights, dev),
                 time_it=label.startswith("N=16 M=2 K"))
 
-    # flash_fwd: causal GQA, a sliding window, ragged non-causal, head dim 64
+    # flash_fwd: causal GQA, a sliding window, ragged non-causal, head dims 64
+    # and 112 (Kimi-K2's), rows that see no key
     for shape, time_it in (((2, 8, 2, 512, 512, 128, True, None), True),
                            ((1, 8, 2, 384, 384, 128, True, 100), False),
                            ((1, 4, 1, 100, 300, 64, False, None), False),
                            ((1, 8, 8, 200, 200, 128, True, None), False),
+                           ((2, 8, 2, 512, 512, 112, True, None), False),
+                           ((1, 8, 4, 384, 384, 112, True, 100), False),
+                           ((1, 2, 1, 384, 128, 112, False, 32), False),
                            # Mixtral-8x22B's prefill: group 6, window 4096
                            ((SERVE_BATCH, 48, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, 4096),
                             False)):
         check_flash(dev, report, shape, time_it)
 
     # flash_dkv / flash_dq (B, Hq, Hkv, S, D, causal, window): GQA groups 1, 2,
-    # 4 and 6, head dims 128 and 64, a sliding window, a ragged length
+    # 4 and 6, head dims 128, 112 and 64, a sliding window, ragged lengths
     for shape, time_it in (((2, 8, 8, 512, 128, True, None), True),
                            ((1, 8, 4, 384, 128, True, 100), False),
                            ((1, 8, 2, 256, 64, True, None), False),
                            ((1, 12, 2, 320, 128, True, None), False),
-                           ((1, 12, 2, 200, 64, True, 64), False)):
+                           ((1, 12, 2, 200, 64, True, 64), False),
+                           ((1, 8, 4, 384, 112, True, None), False),
+                           ((1, 8, 2, 256, 112, True, 64), False),
+                           ((1, 12, 2, 200, 112, True, None), False)):
         check_flash_bwd(dev, report, shape, time_it)
     check_function_grads(dev)
 
@@ -894,6 +952,37 @@ def phase_main_path() -> dict:
     return {"launches": counts, "workloads": workloads}
 
 
+def phase_large_group() -> dict:
+    """Phase 3b: ``evaluate_many`` over LARGE_GROUP two-stage jobs, K =
+    2**80 (an int64 count wraps at 63 such jobs): every policy must take the
+    streamed tier, and SR and SERPT the dynamic kernel's scratch path."""
+    import numpy as np
+
+    from repro_torch.core import evaluator
+    from repro_torch.core.jobs import generate_workload
+
+    rng = np.random.default_rng(LARGE_GROUP)
+    jobs = generate_workload(rng, LARGE_GROUP)
+    require(evaluator.exact_combination_count(jobs) == 2**LARGE_GROUP,
+            f"the outcome count of {LARGE_GROUP} two-stage jobs is not 2**{LARGE_GROUP}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = evaluator.evaluate_many(jobs, ("rank", "serpt", "sr", "random"), rng,
+                                  mc_samples=LARGE_GROUP_SAMPLES)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[main path] N={LARGE_GROUP} M=2 streamed MC (K=2^{LARGE_GROUP}, "
+        f"S={LARGE_GROUP_SAMPLES}): {res} in {secs:.3f} s (host clock, results on host)")
+    log(f"[main path] N={LARGE_GROUP} launches: {counts}")
+    for alg, v in res.items():
+        require(math.isfinite(v) and v > 0, f"N={LARGE_GROUP}: {alg}={v!r}")
+    require(counts["sojourn_enum"] == 0 and counts["dynamic_sojourn_enum"] == 0,
+            f"an exact kernel ran at K=2^{LARGE_GROUP}")
+    require(counts["sojourn_mc"] == 2 and counts["dynamic_sojourn_mc"] == 2,
+            f"the streamed kernels did not take the N={LARGE_GROUP} group: {counts}")
+    return {"launches": counts, "jobs": jobs}
+
+
 def phase_cross_check(jobs) -> None:
     """Phase 3b: a constant index table (rank values broadcast along M) on
     one server is the static RANK order, at N=26 through both kernels."""
@@ -1207,6 +1296,60 @@ def phase_serving_mixtral(dev) -> dict:
     return {"launches": counts, "dropped_share": dropped / pairs}
 
 
+def phase_serving_kimi(dev) -> dict:
+    """Phase 5d: Kimi-K2 at full width and KIMI_LAYERS layers, whose head
+    dim is 112; its peak memory and the capacity's drop share; decode step
+    1 against a longer prefill on a copy of the config whose capacity drops
+    nothing."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    cfg = get_config("kimi-k2-1t-a32b", n_layers=KIMI_LAYERS)
+    require(cfg.hd == 112, f"{cfg.name} head dim {cfg.hd}, not 112")
+    run = serve_model(dev, cfg)
+    counts = run["counts"]
+    calls = cfg.n_layers * (SERVE_STEPS + 1)  # the prefill and each decode step
+    require(counts["flash_fwd"] == cfg.n_layers,
+            f"flash_fwd launched {counts['flash_fwd']} times in one prefill of "
+            f"{cfg.n_layers} layers")
+    require(counts["moe_ffn_fwd"] == 2 * calls,
+            f"moe_ffn_fwd launched {counts['moe_ffn_fwd']} times, not twice in each of "
+            f"{calls} MoE layer calls")
+    require(counts["ssd_fwd"] == 0, "ssd_fwd ran in an attention model")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    require(peak_gb <= KIMI_PEAK_GB, f"peak {peak_gb:.4g} GB above {KIMI_PEAK_GB} GB")
+    g, cap = moe.capacity(cfg, SERVE_BATCH * SERVE_PROMPT)
+    pairs = SERVE_BATCH * SERVE_PROMPT * cfg.top_k * cfg.n_layers
+    moe_calls, dropped = count_dropped(run["plan"], run["params"], run["prompts"])
+    require(moe_calls == cfg.n_layers, f"{moe_calls} MoE layer calls in a prefill")
+    require(0 <= dropped < pairs, f"{dropped} of {pairs} (token, expert) pairs dropped")
+    log(f"{run['tag']} prefill routing: groups of {g} tokens, cap {cap}; dropped {dropped} of "
+        f"{pairs} (token, expert) pairs, share {dropped / pairs:.4%}")
+    busy_shares(run)
+    # decode vs prefill where no token can drop: capacity_factor = E / k
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    prompt = run["prompts"][:, :KIMI_NO_DROP_PROMPT]
+    plan = serve.ServePlan(cfg=no_drop, max_len=prompt.shape[1] + 2, device=dev)
+    logits, cache = serve.make_prefill_fn(plan)(run["params"], {"tokens": prompt})
+    tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
+    del logits
+    got, _ = serve.make_decode_fn(plan)(run["params"], tok, cache, prompt.shape[1])
+    longer = torch.cat([prompt, tok], dim=1)
+    want = serve.make_prefill_fn(plan)(run["params"], {"tokens": longer})[0][:, -1].clone()
+    rel, _ = logits_err(f"{run['tag']} no-drop copy: decode step 1 vs prefill of "
+                        f"{prompt.shape[1] + 1} tokens", got[:, 0], want)
+    require(bool(torch.isfinite(got).all()), "non-finite decode logits")
+    require(rel <= KIMI_REL_L2, f"Kimi-K2 decode vs prefill: rel L2 {rel:.3e}")
+    del got, want, cache
+    release(run)
+    return {"launches": counts, "dropped_share": dropped / pairs, "peak_gb": peak_gb}
+
+
 def tree_names(tree, prefix: str = "") -> list[str]:
     """Leaf names of a nested dict, in the sorted order ``tree_map`` walks."""
     names = []
@@ -1382,7 +1525,7 @@ def time_flash_bwd(dev, report, shape) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_timing(dev, workloads, outcomes_path, report) -> None:
+def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
     """Phase 7: each kernel and its plain version at the largest shapes of
     phases 3-6, the kernel's last timed result held against the plain
     one; then the bound, and the library yardsticks."""
@@ -1427,26 +1570,48 @@ def phase_timing(dev, workloads, outcomes_path, report) -> None:
         log(f"[timing] {name} {shape}: {ms:.3f} ms over {reps} run(s), plain {plain_ms:.1f} ms; "
             f"bound {b_ms:.4f} ms ({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
 
-    # flash_fwd at the serving shape: one Qwen3-8B layer's prefill attention
-    shape = (SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, None)
-    b, hq, hkv, sq, skv, d, causal, _ = shape
-    q, k, v = flash_inputs(dev, b, hq, hkv, sq, skv, d, seed=1)
-    t = check_flash(dev, report, shape, time_it=True, qkv=(q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
-                                                  enable_gqa=True)
-    cuda_ms(sdpa, 2)  # warm up
-    library_ms, _ = cuda_ms(sdpa, 10)
-    flops = flash_flops(b, hq, sq, skv, d, causal)
-    io_bytes = tensor_bytes((q, k, v)) + q.numel() * q.element_size() + b * hq * sq * 4
-    b_ms, b_by = bound_ms(flops, io_bytes, 0, peak=BF16_FLOPS)
-    report["flash_fwd"].update(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"],
-                               bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=library_ms)
-    log(f"[timing] flash_fwd {shape}: {t['ms']:.3f} ms over 10 runs, plain "
-        f"{t['plain_ms']:.1f} ms, scaled_dot_product_attention {library_ms:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e6:.1f} MB): "
-        f"{b_ms / t['ms']:.2%} of it")
-    del q, k, v
-    torch.cuda.empty_cache()
+    # the dynamic kernel's scratch path at phase 3b's group: N=80, S=2^20, SR
+    jobs = large_group["jobs"]
+    args = dynamic_args(jobs, [policies.index_table(jobs, "sr")], dev,
+                        (SEED, LARGE_GROUP_SAMPLES))
+    ms, _ = cuda_ms(lambda: D.dynamic_sojourn_mc(*args), 3)
+    flops = dynamic_flops(jobs, 1, LARGE_GROUP_SAMPLES, mc=True)
+    b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8)
+    shape = f"N={LARGE_GROUP} M=2 S=2^20 P=1 (SR) W=1, scratch path"
+    report["dynamic_sojourn_mc"].update(scratch_path_shape=shape, scratch_path_ms=ms,
+                                        scratch_path_bound_ms=b_ms)
+    log(f"[timing] dynamic_sojourn_mc {shape}: {ms:.3f} ms over 3 runs; bound {b_ms:.4f} ms "
+        f"({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
+
+    # flash_fwd at the serving shape (one Qwen3-8B layer's prefill attention,
+    # the row's shape), the training shape (one Qwen3-1.7B micro-batch) and
+    # Kimi-K2's prefill (head dim 112), each beside SDPA
+    more = []
+    for shape in ((SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, None),
+                  (TRAIN_BATCH // TRAIN_ACCUM, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None),
+                  (SERVE_BATCH, 64, 8, SERVE_PROMPT, SERVE_PROMPT, 112, True, None)):
+        b, hq, hkv, sq, skv, d, causal, _ = shape
+        q, k, v = flash_inputs(dev, b, hq, hkv, sq, skv, d, seed=1)
+        t = check_flash(dev, report, shape, time_it=True, qkv=(q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        cuda_ms(sdpa, 2)  # warm up
+        library_ms, _ = cuda_ms(sdpa, 10)
+        flops = flash_flops(b, hq, sq, skv, d, causal)
+        io_bytes = tensor_bytes((q, k, v)) + q.numel() * q.element_size() + b * hq * sq * 4
+        b_ms, b_by = bound_ms(flops, io_bytes, 0, peak=BF16_FLOPS)
+        row = dict(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
+                   bound_by=b_by, library_ms=library_ms)
+        if not more:
+            report["flash_fwd"].update(reps=10, **row)
+        more.append(row)
+        log(f"[timing] flash_fwd {shape}: {t['ms']:.3f} ms over 10 runs, plain "
+            f"{t['plain_ms']:.1f} ms, scaled_dot_product_attention {library_ms:.3f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e6:.1f} MB): "
+            f"{b_ms / t['ms']:.2%} of it")
+        del q, k, v
+        torch.cuda.empty_cache()
+    report["flash_fwd"]["more_shapes"] = more[1:]
 
     time_flash_bwd(dev, report, (TRAIN_BATCH // TRAIN_ACCUM, 16, 8, TRAIN_SEQ, 128, True, None))
 
@@ -1541,26 +1706,36 @@ def main() -> int:
     phase_kernels(dev, report)
     phase_worked_example()
     main_path = phase_main_path()
+    large_group = phase_large_group()
     phase_cross_check(main_path["workloads"][26])
     outcomes_path = phase_outcomes_path()
     serving = phase_serving(dev)
     mamba = phase_serving_mamba(dev)
     mixtral = phase_serving_mixtral(dev)
+    kimi = phase_serving_kimi(dev)
     training = phase_training(dev)
-    phase_timing(dev, main_path["workloads"], outcomes_path, report)
+    phase_timing(dev, main_path["workloads"], outcomes_path, large_group, report)
     smi = nvidia_smi()
     flash_by_path = {"qwen3-8b": serving["launches"]["flash_fwd"],
                      "mixtral-8x22b": mixtral["launches"]["flash_fwd"],
+                     "kimi-k2-1t-a32b": kimi["launches"]["flash_fwd"],
                      "qwen3-1.7b training": training["launches"]["flash_fwd"]}
+    moe_by_path = {"mixtral-8x22b": mixtral["launches"]["moe_ffn_fwd"],
+                   "kimi-k2-1t-a32b": kimi["launches"]["moe_ffn_fwd"]}
     report["flash_fwd"]["launches_by_path"] = flash_by_path
-    report["moe_ffn_fwd"]["dropped_share"] = mixtral["dropped_share"]
-    launches = {**main_path["launches"], "sojourn_outcomes":
+    report["moe_ffn_fwd"]["launches_by_path"] = moe_by_path
+    report["moe_ffn_fwd"]["dropped_share"] = {"mixtral-8x22b": mixtral["dropped_share"],
+                                              "kimi-k2-1t-a32b": kimi["dropped_share"]}
+    sojourn_by_path = {name: main_path["launches"][name] + large_group["launches"][name]
+                       for name in ("sojourn_enum", "sojourn_mc", "dynamic_sojourn_enum",
+                                    "dynamic_sojourn_mc")}
+    launches = {**sojourn_by_path, "sojourn_outcomes":
                 outcomes_path["launches"]["sojourn_outcomes"],
                 "flash_fwd": sum(flash_by_path.values()),
                 "flash_dkv": training["launches"]["flash_dkv"],
                 "flash_dq": training["launches"]["flash_dq"],
                 "ssd_fwd": mamba["launches"]["ssd_fwd"],
-                "moe_ffn_fwd": mixtral["launches"]["moe_ffn_fwd"]}
+                "moe_ffn_fwd": sum(moe_by_path.values())}
     kernels = []
     for name in REPLACES:
         r = report[name]
@@ -1573,7 +1748,9 @@ def main() -> int:
             **{key: r[key] for key in ("max_rel_err", "max_lse_err", "max_rel_l2",
                                        "max_state_rel_l2", "library", "launches_by_path",
                                        "dropped_share", "decode_shape", "decode_ms",
-                                       "decode_bound_ms", "decode_bound_by") if key in r},
+                                       "decode_bound_ms", "decode_bound_by", "more_shapes",
+                                       "scratch_path_shape", "scratch_path_ms",
+                                       "scratch_path_bound_ms") if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
         })
