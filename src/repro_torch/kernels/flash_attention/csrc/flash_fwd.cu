@@ -57,10 +57,10 @@
 // ptxas serializes every wgmma of a kernel (info C7518) when a wgmma or its
 // registers sit on a path it cannot prove warp-uniform, or when other
 // instructions may write an accumulator while a product is in flight.  So
-// the warpgroup index is read through a shuffle, the consumers' loop peels
-// its first tile instead of testing for it, the barrier wait keeps its
-// retry loop inside one asm statement, and the epilogue has no division
-// with a slow path.
+// the consumers' loop peels its first tile instead of testing for it, the
+// barrier wait keeps its retry loop inside one asm statement, and the
+// epilogue has no division with a slow path; the warpgroup index is read
+// through a shuffle, as CUTLASS does, so that it is warp-uniform too.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -491,8 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   }
   __syncthreads();
 
-  // The warpgroup index, made warp-uniform in the compiler's eyes, so that
-  // ptxas gives each role's code the register count its setmaxnreg sets.
+  // The warpgroup index, warp-uniform in the compiler's eyes.
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (role == 0) {
     // ---- producer: one thread issues every load ----

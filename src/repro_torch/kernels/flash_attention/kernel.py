@@ -114,10 +114,9 @@ def _masked_scores(qf, kb, k0: int, scale: float, causal: bool, window: int | No
     return s
 
 
-def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None,
-                    block_q: int = FWD_BLOCK_Q, block_k: int = FWD_BLOCK_K):
+def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None):
     """Plain version of :func:`flash_fwd` on any device: the kernel's tile
-    walk (``block_q`` query rows, ``block_k`` keys), with every query block
+    walk (FWD_BLOCK_Q query rows, FWD_BLOCK_K keys), with every query block
     of a key block at once."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -127,9 +126,9 @@ def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None,
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
-    for k0 in range(0, skv, block_k):
-        k1 = min(k0 + block_k, skv)
-        visible_block = _visible_blocks(sq, k0, k1, causal, window, dev, block_q)
+    for k0 in range(0, skv, FWD_BLOCK_K):
+        k1 = min(k0 + FWD_BLOCK_K, skv)
+        visible_block = _visible_blocks(sq, k0, k1, causal, window, dev, FWD_BLOCK_Q)
         if not bool(visible_block.any()):
             continue
         s = _masked_scores(qf, k[:, :, k0:k1], k0, scale, causal, window)

@@ -45,6 +45,8 @@
 
 namespace sojourn {
 
+constexpr int kRegisterJobs = 64;  // the largest NMAX; larger groups take the scratch path
+
 template <int NMAX>
 __device__ __forceinline__ void dispatch_one(const int (&stage)[NMAX],
                                              double (&busy)[NMAX],
@@ -299,7 +301,7 @@ int launch_dynamic(const double* tab, const double* durs, const double* idx_tabl
   const dim3 grid = make_grid(n_policies, nblk, &orders_on_x);
   const size_t smem = 3 * (size_t)n * m * sizeof(double) + 2 * (size_t)n * sizeof(int);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n > 64) {  // the scratch path: T x N int2, then T x N double
+  if (n > kRegisterJobs) {  // the scratch path: T x N int2, then T x N double
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     const size_t slots = (size_t)grid.x * grid.y * kThreads * n;
     int2* st_all = static_cast<int2*>(scratch);

@@ -106,22 +106,18 @@ def launch(stem, signatures, entry, device, n_orders, count, args, rows=None,
     if device.type != "cuda":
         raise ValueError(f"{entry} launches on a CUDA device; got {device}")
     lib = _build.library(stem, signatures)
-    extra = ()
-    if scratch_per_thread is None:
-        nblk = blocks_per_order(count, rows or n_orders)
-    else:
-        target = SCRATCH_BLOCKS if scratch_per_thread else TARGET_BLOCKS
-        nblk = blocks_per_order(count, rows or n_orders, target)
-        extra = (None,)
+    nblk = blocks_per_order(count, rows or n_orders,
+                            SCRATCH_BLOCKS if scratch_per_thread else TARGET_BLOCKS)
+    extra = () if scratch_per_thread is None else (None,)  # NULL: no scratch
     with torch.cuda.device(device):
         if scratch_per_thread:
-            nbytes = (rows or n_orders) * nblk * THREADS * scratch_per_thread
-            try:
+            threads = (rows or n_orders) * nblk * THREADS
+            nbytes = threads * scratch_per_thread
+            try:  # held until the launch, so that no later buffer takes its place
                 scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
             except torch.cuda.OutOfMemoryError as err:
-                raise MemoryError(f"{entry} needs {nbytes} bytes of scratch on {device}, "
-                                  f"{scratch_per_thread} for each of its "
-                                  f"{nbytes // scratch_per_thread} threads") from err
+                raise MemoryError(f"{entry} needs {nbytes} bytes of scratch on {device}: "
+                                  f"{scratch_per_thread} for each of {threads} threads") from err
             extra = (scratch.data_ptr(),)
         partials = torch.empty((n_orders, nblk, 2), dtype=torch.float64, device=device)
         out = torch.empty((2, n_orders), dtype=torch.float64, device=device)

@@ -139,3 +139,16 @@ def test_dynamic_past_64_jobs_with_infinite_index_as_reference():
     got = D.sojourn_eval_dynamic(*inputs, samples=(11, 1024), device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=0)
+
+
+def test_scratch_path_sizing():
+    """Past REGISTER_JOBS jobs the wrapper hands the kernel 16 bytes of
+    scratch a job and thread, on a grid cut to SCRATCH_BLOCKS blocks."""
+    from repro_torch.kernels.sojourn_eval import kernel as K
+
+    assert D.REGISTER_JOBS == 64
+    assert D._scratch_per_thread(64) == 0
+    assert D._scratch_per_thread(65) == 65 * D.SCRATCH_JOB_BYTES == 1040
+    assert K.blocks_per_order(1 << 20, 2, K.SCRATCH_BLOCKS) == K.SCRATCH_BLOCKS // 2
+    assert K.blocks_per_order(1 << 20, 2) == K.TARGET_BLOCKS // 2
+    assert K.blocks_per_order(300, 1, K.SCRATCH_BLOCKS) == 2  # at most one index a thread
