@@ -11,7 +11,8 @@ Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
    once) and print its registers and spills, and any wgmma serialization
-   ptxas reports;
+   ptxas reports; the attention kernels (``CLEAN_PTXAS``) must show
+   neither;
 1. hold each of the ten kernels against its plain PyTorch version on
    the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
@@ -19,7 +20,8 @@ Phases, each of which must pass:
    at N = 65, 80 and 160), ``flash_fwd`` in bf16 to the tolerances
    ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
    (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64, 112
-   and 128, ragged lengths) to ``FLASH_BWD_REL_L2``, ``ssd_fwd`` (two groups,
+   and 128, ragged lengths, rows that see no key) to ``FLASH_BWD_REL_L2``,
+   and a second call of each bitwise equal to the first, ``ssd_fwd`` (two groups,
    several chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd``
    (caps 8, 40 and 320, ragged widths) to ``SSD_REL_L2`` /
    ``SSD_STATE_REL`` and ``MOE_REL_L2``.  The MoE and SSD autograd
@@ -88,7 +90,8 @@ Phases, each of which must pass:
    other there too), time ``scaled_dot_product_attention`` beside
    ``flash_fwd`` (at the serving shape, the training shape and Kimi-K2's
    head dim 112), its backward (forward and backward minus forward)
-   beside ``flash_dkv`` and ``flash_dq``, and the three-``torch.bmm``
+   beside ``flash_dkv`` and ``flash_dq`` (at the training shape, head dim
+   112 and head dim 64), and the three-``torch.bmm``
    composition beside ``moe_ffn_fwd`` as their library yardsticks, and
    reckon each kernel's bound.  Phase 1 times each at its mid sizes as
    well.
@@ -220,6 +223,10 @@ SOURCES = {
     "moe_ffn_fwd": "src/repro_torch/kernels/moe_gemm/csrc/moe_ffn.cu",
 }
 SEED = 0x5EED_CAFE
+#: Sources whose ptxas log must show no spill and no serialized wgmma
+#: (info C7518, which makes ptxas wait for each product before the next).
+CLEAN_PTXAS = ("flash_fwd", "flash_bwd")
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 #: The serving phases: 4 requests of 2048 prompt tokens, 32 steps each.
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 #: Mixtral-8x22B's depth on one card: 12 of 56 layers, about 61 GB of bf16
@@ -474,17 +481,28 @@ def tensor_bytes(args) -> int:
 
 
 def phase_build() -> None:
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR})")
+    faults = []
     for stem, out in logs.items():
         for line in out.splitlines():
             if any(key in line for key in ("Compiling entry function", "registers", "spill",
                                             "Potential Performance Loss")):
                 log(f"  {stem}: {line.strip()}")
+            if stem not in CLEAN_PTXAS:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if (spill and (int(spill.group(1)) or int(spill.group(2)))) or \
+                    WGMMA_SERIALIZED in line:
+                faults.append(f"{stem}: {line.strip()}")
+    require(not faults, "ptxas reports a spill or serialized wgmmas in the attention kernels: "
+            + "; ".join(faults))
 
 
 def phase_kernels(dev, report) -> None:
@@ -604,7 +622,10 @@ def phase_kernels(dev, report) -> None:
         check_flash(dev, report, shape, time_it)
 
     # flash_dkv / flash_dq (B, Hq, Hkv, S, D, causal, window): GQA groups 1, 2,
-    # 4 and 6, head dims 128, 112 and 64, a sliding window, ragged lengths
+    # 4 and 6, head dims 128, 112 and 64, a sliding window, ragged lengths;
+    # then (B, Hq, Hkv, Sq, Skv, D, causal, window) with rows 159 and later
+    # seeing no key (their LSE is NEG_INF: the blocks each kernel skips decide
+    # them)
     for shape, time_it in (((2, 8, 8, 512, 128, True, None), True),
                            ((1, 8, 4, 384, 128, True, 100), False),
                            ((1, 8, 2, 256, 64, True, None), False),
@@ -612,7 +633,8 @@ def phase_kernels(dev, report) -> None:
                            ((1, 12, 2, 200, 64, True, 64), False),
                            ((1, 8, 4, 384, 112, True, None), False),
                            ((1, 8, 2, 256, 112, True, 64), False),
-                           ((1, 12, 2, 200, 112, True, None), False)):
+                           ((1, 12, 2, 200, 112, True, None), False),
+                           ((1, 2, 1, 384, 128, 64, False, 32), False)):
         check_flash_bwd(dev, report, shape, time_it)
     check_function_grads(dev)
 
@@ -684,14 +706,21 @@ def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
 
 def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None) -> dict:
     """``flash_dkv`` and ``flash_dq`` against their plain versions on bf16
-    inputs of ``shape`` (B, Hq, Hkv, S, D, causal, window), Sq = Skv, with
-    the LSE of the ``flash_fwd`` kernel; returns the timings asked for."""
+    inputs of ``shape`` (B, Hq, Hkv, S, D, causal, window), Sq = Skv, or
+    (B, Hq, Hkv, Sq, Skv, D, causal, window), with the LSE of the
+    ``flash_fwd`` kernel; a second call of each on the same inputs must
+    give bitwise-equal outputs (each output element is summed by one thread
+    in a fixed order).  Returns the timings asked for."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as FK
 
-    b, hq, hkv, s, d, causal, window = shape
-    q, k, v = qkv or flash_inputs(dev, b, hq, hkv, s, s, d)
+    if len(shape) == 7:
+        b, hq, hkv, sq, d, causal, window = shape
+        skv = sq
+    else:
+        b, hq, hkv, sq, skv, d, causal, window = shape
+    q, k, v = qkv or flash_inputs(dev, b, hq, hkv, sq, skv, d)
     gen = torch.Generator(device=dev).manual_seed(1)
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     kw = dict(scale=d**-0.5, causal=causal, window=window)
@@ -711,6 +740,7 @@ def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None) -> dic
         dq = FK.flash_dq(*args, **kw)
         dk_p, dv_p = FK.flash_dkv_torch(*args, **kw)
         dq_p = FK.flash_dq_torch(*args, **kw)
+    again = (*FK.flash_dkv(*args, **kw), FK.flash_dq(*args, **kw))
     torch.cuda.synchronize()
     for name, pairs in (("flash_dkv", (("dK", dk, dk_p), ("dV", dv, dv_p))),
                         ("flash_dq", (("dQ", dq, dq_p),))):
@@ -730,6 +760,10 @@ def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None) -> dic
             r.update(phase1_shape=str(shape), phase1_ms=out[f"{key}_ms"],
                      phase1_plain_ms=out[f"{key}_plain_ms"])
             log(f"  {name}: kernel {r['phase1_ms']:.3f} ms, plain {r['phase1_plain_ms']:.3f} ms")
+    same = [bool(torch.equal(a, b)) for a, b in zip(again, (dk, dv, dq))]
+    log(f"[kernel repeat] flash_dkv, flash_dq {shape}: a second call bitwise equal for dK, dV, "
+        f"dQ: {same}")
+    require(all(same), f"flash_dkv / flash_dq {shape}: a second call differs ({same})")
     return out
 
 
@@ -1477,11 +1511,12 @@ def grad_check(dev, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def time_flash_bwd(dev, report, shape) -> None:
+def time_flash_bwd(dev, report, shape) -> dict:
     """``flash_dkv`` and ``flash_dq`` timed and held against their plain
-    versions at ``shape`` (B, Hq, Hkv, S, D, causal, window), one
-    Qwen3-1.7B layer's attention backward in training; SDPA's backward
-    (forward and backward minus forward) beside them; their bounds."""
+    versions at ``shape`` (B, Hq, Hkv, S, D, causal, window); SDPA's
+    backward (forward and backward minus forward) beside them; their
+    bounds.  Returns ``{kernel: row}``; the first shape timed (one Qwen3-1.7B
+    layer's attention backward in training) fills the kernels' report."""
     import torch
     import torch.nn.functional as F
 
@@ -1506,23 +1541,23 @@ def time_flash_bwd(dev, report, shape) -> None:
     pairs = attention_pairs(b, hq, s_, s_, causal)
     row_bytes = 2 * b * hq * s_ * 4  # LSE and delta, float32
     in_bytes = tensor_bytes((q, k, v, do)) + row_bytes
+    rows = {}
     for name, ops, out_bytes in (("flash_dkv", 8.0 * d * pairs, 2 * k.numel() * 4),
                                  ("flash_dq", 6.0 * d * pairs, q.numel() * 4)):
         key = "dkv" if name == "flash_dkv" else "dq"
         b_ms, b_by = bound_ms(ops, in_bytes, out_bytes, peak=BF16_FLOPS)
-        report[name].update(shape=str(shape), ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
-                            bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=library_ms,
-                            library="scaled_dot_product_attention backward (forward and "
-                                    "backward minus forward): dQ, dK and dV in one call")
+        rows[name] = dict(shape=str(shape), ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
+                          bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
         log(f"[timing] {name} (B, Hq, Hkv, S, D, causal, window)={shape}: "
             f"{t[f'{key}_ms']:.3f} ms over 10 runs, plain {t[f'{key}_plain_ms']:.1f} ms; bound "
             f"{b_ms:.4f} ms ({b_by}, {ops:.4g} bf16 tensor ops, "
             f"{(in_bytes + out_bytes) / 1e6:.1f} MB): {b_ms / t[f'{key}_ms']:.2%} of it")
-    log(f"[timing] scaled_dot_product_attention at the training shape: forward {fwd_ms:.3f} ms, "
-        f"forward and backward {fwd_bwd_ms:.3f} ms, so the backward {library_ms:.3f} ms against "
+    log(f"[timing] scaled_dot_product_attention at {shape}: forward {fwd_ms:.3f} ms, forward "
+        f"and backward {fwd_bwd_ms:.3f} ms, so the backward {library_ms:.3f} ms against "
         f"flash_dkv + flash_dq {t['dkv_ms'] + t['dq_ms']:.3f} ms")
     del q, k, v, qs, ks, vs, do
     torch.cuda.empty_cache()
+    return rows
 
 
 def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
@@ -1613,7 +1648,19 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
         torch.cuda.empty_cache()
     report["flash_fwd"]["more_shapes"] = more[1:]
 
-    time_flash_bwd(dev, report, (TRAIN_BATCH // TRAIN_ACCUM, 16, 8, TRAIN_SEQ, 128, True, None))
+    # flash_dkv and flash_dq at the training shape (one Qwen3-1.7B micro-batch's
+    # layer), at head dim 112 (Kimi-K2's, 64 query heads) and at head dim 64
+    more = {"flash_dkv": [], "flash_dq": []}
+    for shape in ((TRAIN_BATCH // TRAIN_ACCUM, 16, 8, TRAIN_SEQ, 128, True, None),
+                  (1, 64, 8, SERVE_PROMPT, 112, True, None),
+                  (TRAIN_BATCH // TRAIN_ACCUM, 16, 8, TRAIN_SEQ, 64, True, None)):
+        for name, row in time_flash_bwd(dev, report, shape).items():
+            more[name].append(row)
+    for name, rows in more.items():
+        report[name].update(reps=10, library="scaled_dot_product_attention backward (forward "
+                            "and backward minus forward): dQ, dK and dV in one call",
+                            **rows[0])
+        report[name]["more_shapes"] = rows[1:]
 
     # ssd_fwd at the Mamba2-1.3B prefill shape: one layer's scan
     shape = (SERVE_BATCH, 64, 1, SERVE_PROMPT, 128, 64, 256)

@@ -54,26 +54,24 @@
 // without masked pairs one multiply-add forms its argument), and the final
 // division is a reciprocal and one Newton step.
 //
-// ptxas serializes every wgmma of a kernel (info C7518) when a wgmma or its
-// registers sit on a path it cannot prove warp-uniform, or when other
-// instructions may write an accumulator while a product is in flight.  So
-// the consumers' loop peels its first tile instead of testing for it, the
-// barrier wait keeps its retry loop inside one asm statement, and the
-// epilogue has no division with a slow path; the warpgroup index is read
-// through a shuffle, as CUTLASS does, so that it is warp-uniform too.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// The Hopper pieces (the mbarrier ring, TMA, wgmma descriptors and
+// products, setmaxnreg, the tensor maps) are in hopper.cuh, shared with
+// flash_bwd.cu; so are the rules that keep ptxas from serializing the
+// wgmmas (info C7518).  Here they mean: the consumers' loop peels its first
+// tile instead of testing for it, and the epilogue divides by a reciprocal
+// and one Newton step.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace flash {
+
+using namespace hopper;
 
 constexpr int kBQ = 128;          // query rows a CTA: 64 for each consumer warpgroup
 constexpr int kBK = 128;          // keys a tile
 constexpr int kStages = 3;        // K/V stages of the ring
 constexpr int kThreads = 384;     // the producer warpgroup, then two consumers
-constexpr int kPanelCols = 64;    // bf16 columns of a panel: one 128-byte swizzled row
 constexpr int kPanelBytes = 128 * 128;  // a panel of 128 rows
 constexpr int kConsumerWarps = 8;
 // Registers a thread after setmaxnreg: 128 x 24 + 256 x 240 is the 64 K of
@@ -95,220 +93,12 @@ struct Tiles {
   static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.  The
-// retry loop stays inside the asm: a branch out of it (a time-out that
-// traps, say) would put the wait on a divergent path, and ptxas then
-// serializes every wgmma of the kernel.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra LAB_WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box {64 columns, 128 rows, 1 head} of a 3-d (D, S, B*H) tensor map.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// The same for the A fragments of a product with A in registers: the
-// hardware reads them until the product is done, so they must stay live
-// (and unmoved) until the wait.
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-  }
-}
-
-// 2^x on the special-function unit (relative error 2^-22; results below
-// 2^-126 flush to 0, which changes no sum whose largest term is 1).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // a / d from r = 1 / d and one Newton step: the correctly rounded quotient
 // (as a / d) for the normal operands here, without the division's slow
 // path, whose branch would make ptxas serialize every wgmma.
 __device__ __forceinline__ float quotient(float a, float d, float r) {
   const float q = a * r;
   return fmaf(fmaf(-q, d, a), r, q);
-}
-
-// Two floats as bf16x2: lo in the low half (the lower column index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x 128, f32) (+)= A (64 x 16, shared) B (16 x 128, shared), both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D (64 x 112, f32) += A (64 x 16, registers) B (16 x 112, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55}, "
-      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (D == 64) {
-    wgmma_rs_n64(d, a, desc_b);
-  } else if constexpr (D == 112) {
-    wgmma_rs_n112(d, a, desc_b);
-  } else {
-    wgmma_rs_n128(d, a, desc_b);
-  }
 }
 
 // Whether any (query, key) pair of the CTA's rows [q0, q_last] and the key
@@ -401,7 +191,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
-    wgmma_pv<D>(acc, pa[kk], desc_sw128(v_tile + kk * 16 * 128, kPanelBytes, 1024));
+    wgmma_rs<D>(acc, pa[kk], desc_sw128(v_tile + kk * 16 * 128, kPanelBytes, 1024));
   wgmma_commit();
 }
 
@@ -419,18 +209,6 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows, uint32
                   kk > 0);
   }
   wgmma_commit();
-}
-
-// P rounded to bf16 in place: the accumulator's blocks 2 kk and 2 kk + 1 are
-// k-step kk's A fragment.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
 }
 
 // The softmax of the tile at k0, masked only where the tile holds the
@@ -487,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
       mbar_init(bar_full + 8 * st, 1);
       mbar_init(bar_empty + 8 * st, kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -495,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (role == 0) {
     // ---- producer: one thread issues every load ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
       const int head_q = b * hq + h;
       const int head_kv = b * hkv + h / (hq / hkv);
@@ -519,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     }
   } else {
     // ---- consumers: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    setmaxnreg_inc<kConsumerRegs>();
     const int cw = role - 1;  // consumer 0 or 1
     const int warp = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x % 32;
@@ -548,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
       fence_regs(s);
       float alpha0, alpha1;
       softmax_any(s, rows, kt_begin * kBK, q0, q_last, m0, m1, l0, l1, alpha0, alpha1);
-      pack_p(pa, s);
+      pack_a(pa, s);  // P rounded to bf16 in place
       for (int j = 1; j < n_vis; ++j) {
         const int st = j % kStages;
         const int prev = (j - 1) % kStages;
@@ -569,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
           acc[4 * i + 2] *= alpha1;
           acc[4 * i + 3] *= alpha1;
         }
-        pack_p(pa, s);
+        pack_a(pa, s);  // P rounded to bf16 in place
       }
       issue_pv<D>(acc, pa, s_v + ((n_vis - 1) % kStages) * T::kBytes);
       wgmma_wait_all();
@@ -602,52 +380,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (D, rows, heads) bf16 tensor map read in boxes of {64, 128, 1} with the
-// 128-byte swizzle; boxes past the tensor's end read zeros.
-static bool make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {kPanelCols, 128, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
            int hq, int hkv, int sq, int skv, float scale, int causal, int has_window,
            int window, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(&tm_q, q, D, sq, batch * hq) || !make_map(&tm_k, k, D, skv, batch * hkv) ||
-      !make_map(&tm_v, v, D, skv, batch * hkv))
+  if (!make_map(&tm_q, q, D, sq, batch * hq, kBQ) ||
+      !make_map(&tm_k, k, D, skv, batch * hkv, kBK) ||
+      !make_map(&tm_v, v, D, skv, batch * hkv, kBK))
     return (int)cudaErrorInvalidValue;
   constexpr int kSmem = Tiles<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(

@@ -4,7 +4,8 @@ counts and plain versions.
 ``flash_fwd``, ``flash_dkv`` and ``flash_dq`` replace the TPU kernels of
 the same names in ``repro/kernels/flash_attention/kernel.py``; their CUDA
 sources are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (design notes
-there).  Layout (B, H, S, D); GQA by
+there), all three on TMA, an mbarrier ring and wgmma, whose pieces are in
+``csrc/hopper.cuh``.  Layout (B, H, S, D); GQA by
 head index (query head h reads KV head ``h // (Hq // Hkv)``); causal and
 sliding-window masking (key j visible to query i iff ``j <= i`` and
 ``j > i - window``); returns O in the input type and the float32
@@ -22,11 +23,14 @@ The backward takes the forward's LSE and ``delta = rowsum(dO * O)``
 (B, Hq, Sq) float32 and returns float32 gradients, as the Pallas kernels
 do: ``flash_dkv`` gives dK, dV (B, Hkv, Skv, D), summed over the query
 heads of each KV head's group, and ``flash_dq`` gives dQ (B, Hq, Sq, D).
-Their plain versions, :func:`flash_dkv_torch` and :func:`flash_dq_torch`,
-walk the backward kernels' (BLOCK_Q, BLOCK_K) = 64-row, 64-key blocks with
-the same block skipping and keep P and
-dS in float32, as the Pallas bodies write them; the kernels round P and
-dS to bf16 before their tensor-core products.
+Each kernel skips whole blocks at its own tiles: ``flash_dkv`` walks
+query tiles of DKV_BLOCK_Q = 64 rows against a CTA's DKV_BLOCK_K = 128
+keys, ``flash_dq`` key tiles of DQ_BLOCK_K = 64 against a CTA's
+DQ_BLOCK_Q = 128 rows.  Their plain versions, :func:`flash_dkv_torch`
+and :func:`flash_dq_torch`, walk the same blocks with the same skipping
+(which decides the rows that see no key) and keep P and dS in float32,
+as the Pallas bodies write them; the kernels round P and dS to bf16
+before their tensor-core products.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["FWD_BLOCK_Q", "FWD_BLOCK_K", "BLOCK_Q", "BLOCK_K", "NEG_INF", "launches",
+__all__ = ["FWD_BLOCK_Q", "FWD_BLOCK_K", "DKV_BLOCK_Q", "DKV_BLOCK_K", "DQ_BLOCK_Q",
+           "DQ_BLOCK_K", "NEG_INF", "launches",
            "flash_fwd", "flash_fwd_torch", "flash_dkv", "flash_dkv_torch", "flash_dq",
            "flash_dq_torch"]
 
@@ -45,9 +50,14 @@ __all__ = ["FWD_BLOCK_Q", "FWD_BLOCK_K", "BLOCK_Q", "BLOCK_K", "NEG_INF", "launc
 #: flash_fwd.cu).
 FWD_BLOCK_Q = 128
 FWD_BLOCK_K = 128
-#: Query rows and keys of a backward block (``kBlock`` in flash_bwd.cu).
-BLOCK_Q = 64
-BLOCK_K = 64
+#: flash_dkv's blocks: query rows of its tiles and keys of a CTA
+#: (``kDkvBQ`` / ``kDkvBK`` in flash_bwd.cu).
+DKV_BLOCK_Q = 64
+DKV_BLOCK_K = 128
+#: flash_dq's blocks: query rows of a CTA and keys of its tiles
+#: (``kDqBQ`` / ``kDqBK``).
+DQ_BLOCK_Q = 128
+DQ_BLOCK_K = 64
 #: Large-but-finite mask value: avoids NaN from (-inf) - (-inf).
 NEG_INF = -1e30
 #: Head dims the kernels are compiled for.
@@ -83,7 +93,7 @@ def _check(q, k, v):
 
 
 def _visible_blocks(sq: int, k0: int, k1: int, causal: bool, window: int | None, dev,
-                    block_q: int = BLOCK_Q):
+                    block_q: int):
     """(Sq,) bool: whether the ``block_q``-row query block of each row can
     see any pair of keys [k0, k1): the kernels' block-level skip."""
     q_start = torch.arange(sq, device=dev) // block_q * block_q
@@ -144,11 +154,11 @@ def flash_fwd_torch(q, k, v, *, scale: float, causal: bool, window: int | None):
     return o, (m + torch.log(den)).reshape(b, hq, sq)
 
 
-def _backward_blocks(q, k, v, do, lse, delta, scale, causal, window):
-    """The plain backward's walk over the 64-key blocks: yields ``(k0, k1,
-    P, dS, Q, dO)``, P and dS float32 (B, Hkv, G, Sq, k1 - k0) and 0 on the
-    rows whose query block the kernels skip, Q and dO float32 (B, Hkv, G,
-    Sq, D)."""
+def _backward_blocks(q, k, v, do, lse, delta, scale, causal, window, block_q, block_k):
+    """The plain backward's walk over ``block_k``-key blocks: yields ``(k0,
+    k1, P, dS, Q, dO)``, P and dS float32 (B, Hkv, G, Sq, k1 - k0) and 0 on
+    the rows whose ``block_q``-row query block the kernel skips, Q and dO
+    float32 (B, Hkv, G, Sq, D)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -156,9 +166,9 @@ def _backward_blocks(q, k, v, do, lse, delta, scale, causal, window):
     dof = do.float().reshape(b, hkv, g, sq, d)
     lse_ = lse.float().reshape(b, hkv, g, sq, 1)
     delta_ = delta.float().reshape(b, hkv, g, sq, 1)
-    for k0 in range(0, skv, BLOCK_K):
-        k1 = min(k0 + BLOCK_K, skv)
-        visible_block = _visible_blocks(sq, k0, k1, causal, window, q.device)
+    for k0 in range(0, skv, block_k):
+        k1 = min(k0 + block_k, skv)
+        visible_block = _visible_blocks(sq, k0, k1, causal, window, q.device, block_q)
         if not bool(visible_block.any()):
             continue
         s = _masked_scores(qf, k[:, :, k0:k1], k0, scale, causal, window)
@@ -170,12 +180,13 @@ def _backward_blocks(q, k, v, do, lse, delta, scale, causal, window):
 def flash_dkv_torch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                     window: int | None):
     """Plain version of :func:`flash_dkv` on any device: dV = Pᵀ dO and
-    dK = scale * dSᵀ Q per key block, P and dS in float32."""
+    dK = scale * dSᵀ Q per DKV_BLOCK_K-key block, its DKV_BLOCK_Q-row query
+    tiles skipped as the kernel skips them, P and dS in float32."""
     b, hkv, skv, d = k.shape
     dk = torch.zeros((b, hkv, skv, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     for k0, k1, p, ds, qf, dof in _backward_blocks(q, k, v, do, lse, delta, scale, causal,
-                                                   window):
+                                                   window, DKV_BLOCK_Q, DKV_BLOCK_K):
         dv[:, :, k0:k1] = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
         dk[:, :, k0:k1] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
     return dk, dv
@@ -184,11 +195,13 @@ def flash_dkv_torch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
 def flash_dq_torch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                    window: int | None):
     """Plain version of :func:`flash_dq` on any device: dQ = scale * Σ dS K
-    over the key blocks, P and dS in float32."""
+    over the DQ_BLOCK_K-key tiles that each DQ_BLOCK_Q-row block sees, P
+    and dS in float32."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     dq = torch.zeros((b, hkv, hq // hkv, sq, d), dtype=torch.float32, device=q.device)
-    for k0, k1, _, ds, _, _ in _backward_blocks(q, k, v, do, lse, delta, scale, causal, window):
+    for k0, k1, _, ds, _, _ in _backward_blocks(q, k, v, do, lse, delta, scale, causal, window,
+                                                DQ_BLOCK_Q, DQ_BLOCK_K):
         dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, k[:, :, k0:k1].float())
     return (dq * scale).reshape(b, hq, sq, d)
 

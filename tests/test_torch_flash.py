@@ -28,6 +28,8 @@ from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
 
 RTOL = 1e-5
+#: The reference forward's tiles in the first cases: other than the port's.
+REF_BLOCK = 64
 
 
 def _qkv(b, hq, hkv, sq, skv, d, seed, layout="bhsd"):
@@ -43,7 +45,7 @@ def _reference(q, k, v, causal, window, dtype=jnp.float32):
     o, lse = ref_kernel.flash_fwd(
         jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
         scale=q.shape[-1] ** -0.5, causal=causal, window=window,
-        block_q=K.BLOCK_Q, block_k=K.BLOCK_K, interpret=True,
+        block_q=REF_BLOCK, block_k=REF_BLOCK, interpret=True,
     )
     return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
 
@@ -147,12 +149,15 @@ def test_wrapper_never_falls_back_off_the_cpu():
 # Backward: flash_dkv / flash_dq and the autograd Function
 # ---------------------------------------------------------------------------
 #
-# float32, the port's 64 x 64 tiles on both sides; the reference's LSE
-# and delta = rowsum(dO * O) feed both.  dQ, dK and dV agree to 1e-5 of
-# their largest magnitude (float32 sums in another order).  The Function's
-# gradients against jax.grad of the reference's op in interpret mode (its
-# custom VJP, the Pallas dkv/dq kernels), to 1e-4 (the two forwards and
-# the loss add their float32 roundings).
+# float32.  Each plain version walks its kernel's own blocks (flash_dkv
+# DKV_BLOCK_Q x DKV_BLOCK_K = 64 x 128, flash_dq DQ_BLOCK_Q x DQ_BLOCK_K =
+# 128 x 64), and the reference's Pallas kernel of the same name takes the
+# same blocks in interpret mode; the reference forward's LSE and delta =
+# rowsum(dO * O) feed both.  dQ, dK and dV agree to 1e-5 of their largest
+# magnitude (float32 sums in another order).  The Function's gradients
+# against jax.grad of the reference's op in interpret mode (its custom
+# VJP, the Pallas dkv/dq kernels), to 1e-4 (the two forwards and the loss
+# add their float32 roundings).
 
 BWD_CASES = [
     # hq, hkv, s, causal, window
@@ -173,25 +178,39 @@ def _close_scaled(got, want, rtol):
         float(np.max(np.abs(got - want))), scale)
 
 
-@pytest.mark.parametrize("hq,hkv,s,causal,window", BWD_CASES)
-def test_backward_plain_matches_reference_kernels(hq, hkv, s, causal, window):
-    q, k, v = _qkv(2, hq, hkv, s, s, 16, seed=hq * s + hkv)
-    do = np.random.default_rng(s).standard_normal(q.shape).astype(np.float32)
-    kw = dict(scale=16 ** -0.5, causal=causal, window=window)
+def _reference_backward(q, k, v, do, kw):
+    """(LSE, delta, dK, dV, dQ) of the reference's Pallas kernels in
+    interpret mode, each backward kernel at its port counterpart's blocks."""
     jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
-    o, lse = ref_kernel.flash_fwd(jq, jk, jv, block_q=K.BLOCK_Q, block_k=K.BLOCK_K,
+    o, lse = ref_kernel.flash_fwd(jq, jk, jv, block_q=K.FWD_BLOCK_Q, block_k=K.FWD_BLOCK_K,
                                   interpret=True, **kw)
     delta = jnp.sum(jdo * o, axis=-1)
-    blocks = dict(block_q=K.BLOCK_Q, block_k=K.BLOCK_K, interpret=True)
-    dk_want, dv_want = ref_kernel.flash_dkv(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
-    dq_want = ref_kernel.flash_dq(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
-    args = [torch.tensor(a) for a in (q, k, v, do)] + [torch.tensor(np.asarray(lse)),
-                                                       torch.tensor(np.asarray(delta))]
+    dk, dv = ref_kernel.flash_dkv(jq, jk, jv, jdo, lse, delta, block_q=K.DKV_BLOCK_Q,
+                                  block_k=K.DKV_BLOCK_K, interpret=True, **kw)
+    dq = ref_kernel.flash_dq(jq, jk, jv, jdo, lse, delta, block_q=K.DQ_BLOCK_Q,
+                             block_k=K.DQ_BLOCK_K, interpret=True, **kw)
+    return (np.asarray(x) for x in (lse, delta, dk, dv, dq))
+
+
+def _port_backward(q, k, v, do, lse, delta, kw):
+    args = [torch.tensor(a) for a in (q, k, v, do, lse, delta)]
     dk, dv = K.flash_dkv(*args, **kw)
     dq = K.flash_dq(*args, **kw)
     assert dk.dtype == dv.dtype == dq.dtype == torch.float32
-    for got, want in ((dq, dq_want), (dk, dk_want), (dv, dv_want)):
-        _close_scaled(got.numpy(), want, RTOL)
+    return dk.numpy(), dv.numpy(), dq.numpy()
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("hq,hkv,s,causal,window", BWD_CASES)
+def test_backward_plain_matches_reference_kernels(hq, hkv, s, causal, window, d):
+    extra = 0 if d == 16 else d  # the head dim 16 cases keep their first inputs
+    q, k, v = _qkv(2 if d == 16 else 1, hq, hkv, s, s, d, seed=hq * s + hkv + extra)
+    do = np.random.default_rng(s + extra).standard_normal(q.shape).astype(np.float32)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    lse, delta, *want = _reference_backward(q, k, v, do, kw)
+    got = _port_backward(q, k, v, do, lse, delta, kw)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, RTOL)
 
 
 @pytest.mark.parametrize("hq,hkv,s,causal,window", BWD_CASES[1:4])
@@ -205,7 +224,7 @@ def test_attention_gradients_match_reference_op(hq, hkv, s, causal, window):
 
     def loss_ref(q, k, v):
         o = ref_flash_attention(q, k, v, causal=causal, window=window, impl="interpret",
-                                block_q=K.BLOCK_Q, block_k=K.BLOCK_K)
+                                block_q=K.FWD_BLOCK_Q, block_k=K.FWD_BLOCK_K)
         return jnp.sum(o * w)
 
     want = jax.grad(loss_ref, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
@@ -250,7 +269,7 @@ def test_backward_wrappers_never_fall_back_off_the_cpu():
 # The forward kernel walks FWD_BLOCK_Q x FWD_BLOCK_K = 128 x 128 tiles, so
 # its plain version does too; here the reference's Pallas kernels take the
 # same blocks (lengths that 128 divides), so block skipping and the rows
-# that see no key line up exactly.  The backward kernels keep 64 x 64.
+# that see no key line up exactly.
 
 FWD_CASES = [
     # hq, hkv, sq, skv, causal, window
@@ -293,29 +312,60 @@ def test_plain_matches_reference_kernel_at_forward_blocks_bf16_d112(hq, hkv, sq,
 
 @pytest.mark.parametrize("hq,hkv,s,causal,window", [
     pytest.param(4, 2, 128, True, None, id="causal-g2"),
-    pytest.param(4, 1, 192, True, 40, id="causal-window-g4"),
+    pytest.param(4, 1, 256, True, 40, id="causal-window-g4"),
     pytest.param(6, 6, 128, False, None, id="noncausal-g1"),
 ])
 def test_backward_plain_matches_reference_kernels_d112(hq, hkv, s, causal, window):
     """flash_dkv_torch and flash_dq_torch at D = 112 against the Pallas
-    kernels in interpret mode, both at the backward's 64 x 64 blocks, with
-    the reference forward's LSE and delta."""
+    kernels in interpret mode, each at its kernel's blocks, with the
+    reference forward's LSE and delta."""
     q, k, v = _qkv(1, hq, hkv, s, s, 112, seed=s + hq)
     do = np.random.default_rng(hq).standard_normal(q.shape).astype(np.float32)
     kw = dict(scale=112 ** -0.5, causal=causal, window=window)
-    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
-    blocks = dict(block_q=K.BLOCK_Q, block_k=K.BLOCK_K, interpret=True)
-    o, lse = ref_kernel.flash_fwd(jq, jk, jv, **blocks, **kw)
-    delta = jnp.sum(jdo * o, axis=-1)
-    dk_want, dv_want = ref_kernel.flash_dkv(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
-    dq_want = ref_kernel.flash_dq(jq, jk, jv, jdo, lse, delta, **blocks, **kw)
-    args = [torch.tensor(a) for a in (q, k, v, do)] + [torch.tensor(np.asarray(lse)),
-                                                       torch.tensor(np.asarray(delta))]
-    dk, dv = K.flash_dkv(*args, **kw)
-    dq = K.flash_dq(*args, **kw)
-    for got, want in ((dq, dq_want), (dk, dk_want), (dv, dv_want)):
-        assert got.shape == want.shape
-        _close_scaled(got.numpy(), want, RTOL)
+    lse, delta, *want = _reference_backward(q, k, v, do, kw)
+    got = _port_backward(q, k, v, do, lse, delta, kw)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, RTOL)
+
+
+@pytest.mark.parametrize("hq,hkv,s,window,d", [
+    pytest.param(6, 1, 200, None, 64, id="s200-g6-d64"),
+    pytest.param(4, 2, 200, 64, 112, id="s200-window-g2-d112"),
+    pytest.param(8, 2, 100, None, 128, id="s100-g4-d128"),
+])
+def test_backward_plain_matches_reference_kernels_ragged(hq, hkv, s, window, d):
+    """Causal lengths that no block divides: the plain versions on S rows
+    against the Pallas kernels on the inputs zero-padded to a multiple of
+    128.  The padded keys lie after every real query, so they are masked
+    for it; the padded queries have dO = 0 and delta = 0, so they add
+    exactly 0 to dK and dV; and no block that the padding adds changes
+    which blocks the real rows see."""
+    n = -(-s // 128) * 128
+    q, k, v = _qkv(1, hq, hkv, n, n, d, seed=s + d)
+    do = np.random.default_rng(d).standard_normal(q.shape).astype(np.float32)
+    for a in (q, k, v, do):
+        a[:, :, s:] = 0.0
+    kw = dict(scale=d ** -0.5, causal=True, window=window)
+    lse, delta, dk_want, dv_want, dq_want = _reference_backward(q, k, v, do, kw)
+    got = _port_backward(*(a[:, :, :s] for a in (q, k, v, do, lse, delta)), kw)
+    for g, w in zip(got, (dk_want, dv_want, dq_want)):
+        _close_scaled(g, w[:, :, :s], RTOL)
+
+
+@pytest.mark.parametrize("d", [64, 112])
+def test_backward_plain_matches_reference_kernels_rows_without_keys(d):
+    """Non-causal, window 32, Sq = 384 against Skv = 128: rows 159 and
+    later see no key, so their LSE is NEG_INF and the masked pairs of the
+    blocks each kernel does not skip get P = 1.  Which blocks those are
+    depends on each kernel's own blocks, which the plain versions walk."""
+    q, k, v = _qkv(1, 2, 1, 384, 128, d, seed=d)
+    do = np.random.default_rng(d + 1).standard_normal(q.shape).astype(np.float32)
+    kw = dict(scale=d ** -0.5, causal=False, window=32)
+    lse, delta, *want = _reference_backward(q, k, v, do, kw)
+    assert float(lse[0, 0, -1]) <= K.NEG_INF / 2
+    got = _port_backward(q, k, v, do, lse, delta, kw)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, RTOL)
 
 
 def test_kernel_head_dims():
