@@ -94,7 +94,8 @@ Phases, each of which must pass:
    112 and head dim 64), and the three-``torch.bmm``
    composition beside ``moe_ffn_fwd`` as their library yardsticks, and
    reckon each kernel's bound.  Phase 1 times each at its mid sizes as
-   well.
+   well.  Each timed window starts behind a sleep on the card
+   (``PREFILL_CYCLES``), so it measures the card and not the host.
 
 Phases 3, 4, each serving run of 5 and the training run of 6 set every
 launch count to 0 just before they drive their path and read the counts
@@ -191,6 +192,12 @@ SSD_GRAD_REL_L2 = 1e-3
 #: and 80 x those, set before the first reading on the card.
 TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL_L2 = 5e-2
+#: Clock cycles the card sleeps ahead of each timed window (about 55 ms at
+#: 1.8 GHz), longer than the host takes to enqueue the ten calls of a
+#: kernel's window.  Without it a host stall inside the window left the card
+#: idle, and flash_dq's time at the training shape spread from 0.356 to
+#: 0.501 ms over three runs of one tree on an H100.
+PREFILL_CYCLES = 100_000_000
 #: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate,
 #: dense bf16 tensor-core rate and HBM bandwidth, at the full 700 W limit.
 FP64_FLOPS = 34e12
@@ -284,10 +291,13 @@ def abs_err(got, want) -> float:
 
 def cuda_ms(fn, reps: int):
     """(mean milliseconds of ``fn()`` on the card over ``reps`` runs, timed
-    with CUDA events; the last run's result)."""
+    with CUDA events; the last run's result).  The card first sleeps for
+    PREFILL_CYCLES while the host enqueues the runs, so that a host stall
+    between two launches does not count as kernel time."""
     import torch
 
     torch.cuda.synchronize()
+    torch.cuda._sleep(PREFILL_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
