@@ -94,8 +94,9 @@ Phases, each of which must pass:
    112 and head dim 64), and the three-``torch.bmm``
    composition beside ``moe_ffn_fwd`` as their library yardsticks, and
    reckon each kernel's bound.  Phase 1 times each at its mid sizes as
-   well.  Each timed window starts behind a sleep on the card
-   (``PREFILL_CYCLES``), so it measures the card and not the host.
+   well.  Each time is the median of calls timed one by one behind a
+   sleep on the card (``PREFILL_CYCLES``), so it measures the card and not
+   the host.
 
 Phases 3, 4, each serving run of 5 and the training run of 6 set every
 launch count to 0 just before they drive their path and read the counts
@@ -195,8 +196,10 @@ TRAIN_GRAD_REL_L2 = 5e-2
 #: Clock cycles the card sleeps ahead of each timed window (about 55 ms at
 #: 1.8 GHz), longer than the host takes to enqueue the ten calls of a
 #: kernel's window.  Without it a host stall inside the window left the card
-#: idle, and flash_dq's time at the training shape spread from 0.356 to
-#: 0.501 ms over three runs of one tree on an H100.
+#: idle, and flash_dq's mean time at the training shape spread from 0.356 to
+#: 0.501 ms over three runs of one tree on an H100; with it, one run in
+#: three still read 6.242 ms (a stall longer than the sleep), hence the
+#: median of calls timed one by one (cuda_ms).
 PREFILL_CYCLES = 100_000_000
 #: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate,
 #: dense bf16 tensor-core rate and HBM bandwidth, at the full 700 W limit.
@@ -290,22 +293,25 @@ def abs_err(got, want) -> float:
 
 
 def cuda_ms(fn, reps: int):
-    """(mean milliseconds of ``fn()`` on the card over ``reps`` runs, timed
-    with CUDA events; the last run's result).  The card first sleeps for
-    PREFILL_CYCLES while the host enqueues the runs, so that a host stall
-    between two launches does not count as kernel time."""
+    """(median milliseconds of one ``fn()`` on the card over ``reps`` calls,
+    each between its own pair of CUDA events; the last call's result).  The
+    card first sleeps for PREFILL_CYCLES while the host enqueues the calls,
+    so they run back to back; a host stall longer than that idles the card
+    inside the call it delays, which the median leaves out."""
+    import statistics
+
     import torch
 
     torch.cuda.synchronize()
     torch.cuda._sleep(PREFILL_CYCLES)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
         out = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, out
+        end.record()
+    events[-1][1].synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events), out
 
 
 def launch_counters() -> list[dict]:
@@ -1559,7 +1565,8 @@ def time_flash_bwd(dev, report, shape) -> dict:
         rows[name] = dict(shape=str(shape), ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
                           bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
         log(f"[timing] {name} (B, Hq, Hkv, S, D, causal, window)={shape}: "
-            f"{t[f'{key}_ms']:.3f} ms over 10 runs, plain {t[f'{key}_plain_ms']:.1f} ms; bound "
+            f"{t[f'{key}_ms']:.3f} ms, median of 10 runs, plain "
+            f"{t[f'{key}_plain_ms']:.1f} ms; bound "
             f"{b_ms:.4f} ms ({b_by}, {ops:.4g} bf16 tensor ops, "
             f"{(in_bytes + out_bytes) / 1e6:.1f} MB): {b_ms / t[f'{key}_ms']:.2%} of it")
     log(f"[timing] scaled_dot_product_attention at {shape}: forward {fwd_ms:.3f} ms, forward "
@@ -1612,7 +1619,8 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
         b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8)
         report[name].update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, reps=reps)
-        log(f"[timing] {name} {shape}: {ms:.3f} ms over {reps} run(s), plain {plain_ms:.1f} ms; "
+        log(f"[timing] {name} {shape}: {ms:.3f} ms, median of {reps} run(s), plain "
+            f"{plain_ms:.1f} ms; "
             f"bound {b_ms:.4f} ms ({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
 
     # the dynamic kernel's scratch path at phase 3b's group: N=80, S=2^20, SR
@@ -1625,7 +1633,7 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
     shape = f"N={LARGE_GROUP} M=2 S=2^20 P=1 (SR) W=1, scratch path"
     report["dynamic_sojourn_mc"].update(scratch_path_shape=shape, scratch_path_ms=ms,
                                         scratch_path_bound_ms=b_ms)
-    log(f"[timing] dynamic_sojourn_mc {shape}: {ms:.3f} ms over 3 runs; bound {b_ms:.4f} ms "
+    log(f"[timing] dynamic_sojourn_mc {shape}: {ms:.3f} ms, median of 3 runs; bound {b_ms:.4f} ms "
         f"({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
 
     # flash_fwd at the serving shape (one Qwen3-8B layer's prefill attention,
@@ -1650,7 +1658,7 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
         if not more:
             report["flash_fwd"].update(reps=10, **row)
         more.append(row)
-        log(f"[timing] flash_fwd {shape}: {t['ms']:.3f} ms over 10 runs, plain "
+        log(f"[timing] flash_fwd {shape}: {t['ms']:.3f} ms, median of 10 runs, plain "
             f"{t['plain_ms']:.1f} ms, scaled_dot_product_attention {library_ms:.3f} ms; bound "
             f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e6:.1f} MB): "
             f"{b_ms / t['ms']:.2%} of it")
@@ -1679,7 +1687,7 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
     b_ms, b_by = ssd_bound(tensor_ops, f32_ops, io_bytes)
     report["ssd_fwd"].update(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"],
                              bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=None)
-    log(f"[timing] ssd_fwd (B, H, G, S, N, P, chunk)={shape}: {t['ms']:.3f} ms over 10 runs, "
+    log(f"[timing] ssd_fwd (B, H, G, S, N, P, chunk)={shape}: {t['ms']:.3f} ms, median of 10 runs, "
         f"plain {t['plain_ms']:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {tensor_ops:.4g} bf16 "
         f"tensor ops, {f32_ops:.4g} f32 ops, {io_bytes / 1e6:.1f} MB): {b_ms / t['ms']:.2%} of it")
 
@@ -1706,12 +1714,12 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
         library="three torch.bmm (moe_ffn_ref), a yardstick, not a port",
         decode_shape=str((e, 8, dm, dff)), decode_ms=dec_ms, decode_bound_ms=dec_b_ms,
         decode_bound_by=dec_b_by)
-    log(f"[timing] moe_ffn_fwd (E, R, Dm, Dff)={(e, rows, dm, dff)}: {t['ms']:.3f} ms over 3 "
-        f"runs, plain {t['plain_ms']:.1f} ms, three torch.bmm {library_ms:.3f} ms; bound "
+    log(f"[timing] moe_ffn_fwd (E, R, Dm, Dff)={(e, rows, dm, dff)}: {t['ms']:.3f} ms, median of "
+        f"3 runs, plain {t['plain_ms']:.1f} ms, three torch.bmm {library_ms:.3f} ms; bound "
         f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e9:.3f} GB): "
         f"{b_ms / t['ms']:.2%} of it")
-    log(f"[timing] moe_ffn_fwd decode (E, R, Dm, Dff)={(e, 8, dm, dff)}: {dec_ms:.3f} ms over 10 "
-        f"runs; bound {dec_b_ms:.4f} ms ({dec_b_by}): {dec_b_ms / dec_ms:.2%} of it")
+    log(f"[timing] moe_ffn_fwd decode (E, R, Dm, Dff)={(e, 8, dm, dff)}: {dec_ms:.3f} ms, median "
+        f"of 10 runs; bound {dec_b_ms:.4f} ms ({dec_b_by}): {dec_b_ms / dec_ms:.2%} of it")
     del args, dec_args
     torch.cuda.empty_cache()
 
