@@ -144,6 +144,9 @@ SSD_STATE_REL = 1e-3
 #: moe_ffn_fwd against its plain version: the activation and the output are
 #: rounded to bf16 on both sides after float32 sums in another order.
 MOE_REL_L2 = 1e-2
+#: The plain MoE version's float32 weight copies at once, at most: it runs
+#: over chunks of experts within this.
+MOE_PLAIN_BYTES = 16 << 30
 #: Mamba2-1.3B: 256 decode steps (the plain recurrence, y rounded to bf16
 #: a step) after a 1792-token prefill, against a 2048-token prefill (the
 #: ssd_fwd kernel, chunks of 256).  The random 48-layer stack amplifies
@@ -898,21 +901,41 @@ def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
 
 def moe_inputs(dev, e, r, dm, dff, seed=0):
     """Expert rows x (E, R, Dm) of unit scale and fan-in-scaled expert
-    weights, bf16."""
+    weights, bf16, drawn 16 experts at a time (Kimi-K2's 384 experts of
+    float32 draws would take 68 GB at once)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def draw(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        for i in range(0, shape[0], 16):
+            part = out[i:i + 16]
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev).mul_(std))
+        return out
 
     return (draw((e, r, dm), 1.0), draw((e, dm, dff), dm**-0.5), draw((e, dm, dff), dm**-0.5),
             draw((e, dff, dm), dff**-0.5))
 
 
+def moe_plain(x, wg, wu, wd):
+    """``moe_ffn_fwd_torch`` over chunks of experts whose float32 weight
+    copies stay within MOE_PLAIN_BYTES (Kimi-K2's 384 experts would need
+    68 GB at once); each expert's rows are computed as in one call."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm import kernel as MK
+
+    e, _, dm = x.shape
+    step = max(1, min(e, MOE_PLAIN_BYTES // (3 * dm * wg.shape[-1] * 4)))
+    return torch.cat([MK.moe_ffn_fwd_torch(x[i:i + step], wg[i:i + step], wu[i:i + step],
+                                           wd[i:i + step]) for i in range(0, e, step)])
+
+
 def check_moe(dev, report, shape, time_it=False, reps=3, args=None) -> dict:
     """``moe_ffn_fwd`` against its plain version on inputs of ``shape`` (E,
-    R, Dm, Dff); returns the timings asked for."""
+    R, Dm, Dff), and a second call bitwise equal to the first; returns the
+    timings asked for."""
     import torch
 
     from repro_torch.kernels.moe_gemm import kernel as MK
@@ -922,10 +945,13 @@ def check_moe(dev, report, shape, time_it=False, reps=3, args=None) -> dict:
     if time_it:
         cuda_ms(lambda: MK.moe_ffn_fwd(*args), 1)  # warm up
         out["ms"], o = cuda_ms(lambda: MK.moe_ffn_fwd(*args), reps)
-        out["plain_ms"], o_p = cuda_ms(lambda: MK.moe_ffn_fwd_torch(*args), 1)
+        out["plain_ms"], o_p = cuda_ms(lambda: moe_plain(*args), 1)
     else:
-        o, o_p = MK.moe_ffn_fwd(*args), MK.moe_ffn_fwd_torch(*args)
+        o, o_p = MK.moe_ffn_fwd(*args), moe_plain(*args)
+    again = MK.moe_ffn_fwd(*args)
     torch.cuda.synchronize()
+    require(bool(torch.equal(o, again)), f"moe_ffn_fwd {shape}: a second call differs")
+    del again
     require(bool(torch.isfinite(o.float()).all()), f"moe_ffn_fwd {shape}: non-finite output")
     err = rel_l2(o, o_p)
     r = report.setdefault("moe_ffn_fwd", {"max_abs_err": 0.0, "max_rel_l2": 0.0})
@@ -1144,21 +1170,23 @@ def logits_err(tag: str, got, want) -> tuple[float, float]:
     return rel, max_abs
 
 
-def busy_shares(run: dict) -> None:
+def busy_shares(run: dict, top: int = 0) -> None:
     """The card's busy share: kernel and copy time under ``torch.profiler``
     of one more prefill and three decode steps, over the wall time of the
-    same work in the unprofiled run."""
+    same work in the unprofiled run; with ``top``, the prefill's and the
+    decode steps' ``top`` kernels by device time."""
     from repro_torch.launch import serve
 
     plan, params, prompts, res = run["plan"], run["params"], run["prompts"], run["res"]
     prefill, decode = serve.make_prefill_fn(plan), serve.make_decode_fn(plan)
     out = {}
     prefill_dev = profiled_device_ms(
-        lambda: out.update(cache=prefill(params, {"tokens": prompts})[1]))
+        lambda: out.update(cache=prefill(params, {"tokens": prompts})[1]), top,
+        f"{run['tag']} prefill kernel")
     steps = 3
     decode_dev = profiled_device_ms(lambda: [
         decode(params, res.tokens[:, i : i + 1], out["cache"], SERVE_PROMPT + i)
-        for i in range(steps)])
+        for i in range(steps)], top, f"{run['tag']} {steps} decode steps' kernel")
     mean_decode_ms = sum(res.decode_s) / len(res.decode_s) * 1e3
     for name, dev_ms, wall_ms in (("prefill", prefill_dev, res.prefill_s * 1e3),
                                   ("decode step", decode_dev and decode_dev / steps,
@@ -1297,6 +1325,25 @@ def count_dropped(plan, params, prompts) -> tuple[int, int]:
     return len(dropped), int(torch.stack(dropped).sum())
 
 
+def recording_moe_shapes(fn):
+    """(``fn()``, the set of (E, R, Dm, Dff) that ``moe_ffn_fwd`` was called
+    with meanwhile), seen by wrapping the wrapper for that call only."""
+    from repro_torch.kernels.moe_gemm import kernel as MK
+
+    shapes = set()
+    moe_ffn_fwd = MK.moe_ffn_fwd
+
+    def recording(x, wg, wu, wd):
+        shapes.add((*x.shape, wg.shape[-1]))
+        return moe_ffn_fwd(x, wg, wu, wd)
+
+    MK.moe_ffn_fwd = recording
+    try:
+        return fn(), shapes
+    finally:
+        MK.moe_ffn_fwd = moe_ffn_fwd
+
+
 def phase_serving_mixtral(dev) -> dict:
     """Phase 5c: Mixtral-8x22B at full width and MIXTRAL_LAYERS layers;
     the capacity's drop share; decode step 1 against a longer prefill on
@@ -1310,7 +1357,7 @@ def phase_serving_mixtral(dev) -> dict:
     from repro_torch.models import moe
 
     cfg = get_config("mixtral-8x22b", n_layers=MIXTRAL_LAYERS)
-    run = serve_model(dev, cfg)
+    run, moe_shapes = recording_moe_shapes(lambda: serve_model(dev, cfg))
     counts = run["counts"]
     calls = cfg.n_layers * (SERVE_STEPS + 1)  # the prefill and each decode step
     require(counts["flash_fwd"] == cfg.n_layers,
@@ -1326,7 +1373,7 @@ def phase_serving_mixtral(dev) -> dict:
     require(moe_calls == cfg.n_layers, f"{moe_calls} MoE layer calls in a prefill")
     log(f"{run['tag']} prefill routing: groups of {g} tokens, cap {cap}; dropped {dropped} of "
         f"{pairs} (token, expert) pairs, share {dropped / pairs:.4%}")
-    busy_shares(run)
+    busy_shares(run, top=6)
     # decode vs prefill where no token can drop: capacity_factor = E / k
     no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     prompt = run["prompts"][:, :512]
@@ -1343,7 +1390,7 @@ def phase_serving_mixtral(dev) -> dict:
     require(rel <= MIXTRAL_REL_L2, f"Mixtral decode vs prefill: rel L2 {rel:.3e}")
     del got, want, cache
     release(run)
-    return {"launches": counts, "dropped_share": dropped / pairs}
+    return {"launches": counts, "dropped_share": dropped / pairs, "moe_shapes": moe_shapes}
 
 
 def phase_serving_kimi(dev) -> dict:
@@ -1361,7 +1408,7 @@ def phase_serving_kimi(dev) -> dict:
 
     cfg = get_config("kimi-k2-1t-a32b", n_layers=KIMI_LAYERS)
     require(cfg.hd == 112, f"{cfg.name} head dim {cfg.hd}, not 112")
-    run = serve_model(dev, cfg)
+    run, moe_shapes = recording_moe_shapes(lambda: serve_model(dev, cfg))
     counts = run["counts"]
     calls = cfg.n_layers * (SERVE_STEPS + 1)  # the prefill and each decode step
     require(counts["flash_fwd"] == cfg.n_layers,
@@ -1380,7 +1427,7 @@ def phase_serving_kimi(dev) -> dict:
     require(0 <= dropped < pairs, f"{dropped} of {pairs} (token, expert) pairs dropped")
     log(f"{run['tag']} prefill routing: groups of {g} tokens, cap {cap}; dropped {dropped} of "
         f"{pairs} (token, expert) pairs, share {dropped / pairs:.4%}")
-    busy_shares(run)
+    busy_shares(run, top=6)
     # decode vs prefill where no token can drop: capacity_factor = E / k
     no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     prompt = run["prompts"][:, :KIMI_NO_DROP_PROMPT]
@@ -1397,7 +1444,8 @@ def phase_serving_kimi(dev) -> dict:
     require(rel <= KIMI_REL_L2, f"Kimi-K2 decode vs prefill: rel L2 {rel:.3e}")
     del got, want, cache
     release(run)
-    return {"launches": counts, "dropped_share": dropped / pairs, "peak_gb": peak_gb}
+    return {"launches": counts, "dropped_share": dropped / pairs, "peak_gb": peak_gb,
+            "moe_shapes": moe_shapes}
 
 
 def tree_names(tree, prefix: str = "") -> list[str]:
@@ -1577,10 +1625,12 @@ def time_flash_bwd(dev, report, shape) -> dict:
     return rows
 
 
-def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
+def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report) -> None:
     """Phase 7: each kernel and its plain version at the largest shapes of
     phases 3-6, the kernel's last timed result held against the plain
-    one; then the bound, and the library yardsticks."""
+    one; then the bound, and the library yardsticks.  ``moe_shapes`` maps
+    each MoE model to the ``moe_ffn_fwd`` shapes its serving phase
+    launched."""
     import torch
     import torch.nn.functional as F
 
@@ -1691,36 +1741,70 @@ def phase_timing(dev, workloads, outcomes_path, large_group, report) -> None:
         f"plain {t['plain_ms']:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {tensor_ops:.4g} bf16 "
         f"tensor ops, {f32_ops:.4g} f32 ops, {io_bytes / 1e6:.1f} MB): {b_ms / t['ms']:.2%} of it")
 
-    # moe_ffn_fwd at the Mixtral-8x22B prefill shape (8 groups x cap 320 folded
-    # into 2560 rows an expert), and at its decode shape (cap 8)
-    from repro_torch.kernels.moe_gemm import kernel as MK
+    # moe_ffn_fwd at the serving shapes of phases 5c and 5d
+    for i, (name, shapes) in enumerate(moe_shapes.items()):
+        time_moe(dev, report, name, shapes, first=i == 0)
+
+
+def moe_serving_shapes(name: str) -> tuple[tuple, tuple]:
+    """(prefill, decode) shapes (E, R, Dm, Dff) of ``moe_ffn_fwd`` in the
+    serving phase of ``name``: the dispatch groups of SERVE_BATCH x
+    SERVE_PROMPT tokens folded into each expert's rows, then a decode
+    step's SERVE_BATCH tokens, with ``models.moe.capacity``'s caps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(name)
+    out = []
+    for tokens in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH):
+        g, cap = moe.capacity(cfg, tokens)
+        out.append((cfg.n_experts, tokens // g * cap, cfg.d_model, cfg.d_ff))
+    return tuple(out)
+
+
+def time_moe(dev, report, name, shapes, first) -> None:
+    """Phase 7 for ``moe_ffn_fwd`` at one MoE model's prefill and decode
+    shapes, each held against the shapes its serving phase launched
+    (``shapes``): the kernel's median time, the plain version's, the bound,
+    and the three-``torch.bmm`` composition beside the prefill.  The first
+    model's prefill is the kernel's row; every shape goes to ``more_shapes``."""
+    import torch
+
     from repro_torch.kernels.moe_gemm.ref import moe_ffn_ref
 
-    e, rows, dm, dff = 8, 8 * 320, 6144, 16384
-    args = moe_inputs(dev, e, rows, dm, dff, seed=2)
-    t = check_moe(dev, report, (e, rows, dm, dff), time_it=True, args=args)
-    cuda_ms(lambda: moe_ffn_ref(*args), 1)  # warm up
-    library_ms, _ = cuda_ms(lambda: moe_ffn_ref(*args), 3)
-    flops = 6.0 * e * rows * dm * dff
-    io_bytes = tensor_bytes(args) + e * rows * dm * 2
-    b_ms, b_by = bound_ms(flops, io_bytes, 0, peak=BF16_FLOPS)
-    dec_args = (args[0][:, :8].contiguous(), *args[1:])
-    dec_ms = check_moe(dev, report, (e, 8, dm, dff), time_it=True, reps=10, args=dec_args)["ms"]
-    dec_b_ms, dec_b_by = bound_ms(6.0 * e * 8 * dm * dff, tensor_bytes(dec_args), e * 8 * dm * 2,
-                                  peak=BF16_FLOPS)
-    report["moe_ffn_fwd"].update(
-        shape=str((e, rows, dm, dff)), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
-        bound_by=b_by, reps=3, library_ms=library_ms,
-        library="three torch.bmm (moe_ffn_ref), a yardstick, not a port",
-        decode_shape=str((e, 8, dm, dff)), decode_ms=dec_ms, decode_bound_ms=dec_b_ms,
-        decode_bound_by=dec_b_by)
-    log(f"[timing] moe_ffn_fwd (E, R, Dm, Dff)={(e, rows, dm, dff)}: {t['ms']:.3f} ms, median of "
-        f"3 runs, plain {t['plain_ms']:.1f} ms, three torch.bmm {library_ms:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}, {flops:.4g} bf16 tensor ops, {io_bytes / 1e9:.3f} GB): "
-        f"{b_ms / t['ms']:.2%} of it")
-    log(f"[timing] moe_ffn_fwd decode (E, R, Dm, Dff)={(e, 8, dm, dff)}: {dec_ms:.3f} ms, median "
-        f"of 10 runs; bound {dec_b_ms:.4f} ms ({dec_b_by}): {dec_b_ms / dec_ms:.2%} of it")
-    del args, dec_args
+    prefill, decode = moe_serving_shapes(name)
+    require(prefill in shapes and decode in shapes,
+            f"{name}: moe_ffn_fwd shapes {sorted(shapes)} lack {prefill} or {decode}")
+    r = report["moe_ffn_fwd"]
+    args = moe_inputs(dev, *prefill, seed=2)
+    for kind, shape in (("prefill", prefill), ("decode", decode)):
+        e, rows, dm, dff = shape
+        if kind == "decode":
+            args = (args[0][:, :rows].contiguous(), *args[1:])
+        reps = 3 if kind == "prefill" else 10
+        t = check_moe(dev, report, shape, time_it=True, reps=reps, args=args)
+        library_ms = None
+        if kind == "prefill":
+            cuda_ms(lambda: moe_ffn_ref(*args), 1)  # warm up
+            library_ms, _ = cuda_ms(lambda: moe_ffn_ref(*args), 3)
+        flops = 6.0 * e * rows * dm * dff
+        b_ms, b_by = bound_ms(flops, tensor_bytes(args), e * rows * dm * 2, peak=BF16_FLOPS)
+        row = dict(model=name, kind=kind, shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"],
+                   bound_ms=b_ms, bound_by=b_by, reps=reps, library_ms=library_ms)
+        r.setdefault("more_shapes", []).append(row)
+        if first and kind == "prefill":
+            r.update(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
+                     bound_by=b_by, reps=reps, library_ms=library_ms,
+                     library="three torch.bmm (moe_ffn_ref), a yardstick, not a port")
+        if first and kind == "decode":
+            r.update(decode_shape=str(shape), decode_ms=t["ms"], decode_bound_ms=b_ms,
+                     decode_bound_by=b_by)
+        yard = f", three torch.bmm {library_ms:.3f} ms" if library_ms is not None else ""
+        log(f"[timing] moe_ffn_fwd {name} {kind} (E, R, Dm, Dff)={shape}: {t['ms']:.3f} ms, "
+            f"median of {reps} runs, plain {t['plain_ms']:.1f} ms{yard}; bound {b_ms:.4f} ms "
+            f"({b_by}, {flops:.4g} bf16 tensor ops, {tensor_bytes(args) / 1e9:.3f} GB in): "
+            f"{b_ms / t['ms']:.2%} of it")
+    del args
     torch.cuda.empty_cache()
 
 
@@ -1779,7 +1863,9 @@ def main() -> int:
     mixtral = phase_serving_mixtral(dev)
     kimi = phase_serving_kimi(dev)
     training = phase_training(dev)
-    phase_timing(dev, main_path["workloads"], outcomes_path, large_group, report)
+    phase_timing(dev, main_path["workloads"], outcomes_path, large_group,
+                 {"mixtral-8x22b": mixtral["moe_shapes"], "kimi-k2-1t-a32b": kimi["moe_shapes"]},
+                 report)
     smi = nvidia_smi()
     flash_by_path = {"qwen3-8b": serving["launches"]["flash_fwd"],
                      "mixtral-8x22b": mixtral["launches"]["flash_fwd"],
