@@ -11,8 +11,8 @@ Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
    once) and print its registers and spills, and any wgmma serialization
-   ptxas reports; the attention kernels (``CLEAN_PTXAS``) must show
-   neither;
+   ptxas reports; the TMA and wgmma kernels (``CLEAN_PTXAS``: attention
+   and the MoE FFN) must show neither;
 1. hold each of the ten kernels against its plain PyTorch version on
    the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
@@ -23,7 +23,9 @@ Phases, each of which must pass:
    and 128, ragged lengths, rows that see no key) to ``FLASH_BWD_REL_L2``,
    and a second call of each bitwise equal to the first, ``ssd_fwd`` (two groups,
    several chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd``
-   (caps 8, 40 and 320, ragged widths) to ``SSD_REL_L2`` /
+   (caps 8, 40 and 320, ragged widths and rows in both tilings, 48
+   experts, rows on both sides of its decode tiles' limit, and a second
+   call bitwise equal to the first) to ``SSD_REL_L2`` /
    ``SSD_STATE_REL`` and ``MOE_REL_L2``.  The MoE and SSD autograd
    Functions (kernel forward, reference backward) give gradients within
    ``MOE_GRAD_REL_L2`` / ``SSD_GRAD_REL_L2`` of autograd through their
@@ -92,11 +94,13 @@ Phases, each of which must pass:
    head dim 112), its backward (forward and backward minus forward)
    beside ``flash_dkv`` and ``flash_dq`` (at the training shape, head dim
    112 and head dim 64), and the three-``torch.bmm``
-   composition beside ``moe_ffn_fwd`` as their library yardsticks, and
-   reckon each kernel's bound.  Phase 1 times each at its mid sizes as
-   well.  Each time is the median of calls timed one by one behind a
-   sleep on the card (``PREFILL_CYCLES``), so it measures the card and not
-   the host.
+   composition beside ``moe_ffn_fwd`` (at the prefill shapes of Mixtral
+   and Kimi-K2; the kernel also at both decode shapes, each shape held
+   against those phases 5c and 5d launched) as their library
+   yardsticks, and reckon each kernel's bound.  Phase 1 times each at
+   its mid sizes as well.  Each time is the median of calls timed one by
+   one behind a sleep on the card (``PREFILL_CYCLES``), so it measures
+   the card and not the host.
 
 Phases 3, 4, each serving run of 5 and the training run of 6 set every
 launch count to 0 just before they drive their path and read the counts
@@ -238,7 +242,7 @@ SOURCES = {
 SEED = 0x5EED_CAFE
 #: Sources whose ptxas log must show no spill and no serialized wgmma
 #: (info C7518, which makes ptxas wait for each product before the next).
-CLEAN_PTXAS = ("flash_fwd", "flash_bwd")
+CLEAN_PTXAS = ("flash_fwd", "flash_bwd", "moe_ffn")
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 #: The serving phases: 4 requests of 2048 prompt tokens, 32 steps each.
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
@@ -520,8 +524,8 @@ def phase_build() -> None:
             if (spill and (int(spill.group(1)) or int(spill.group(2)))) or \
                     WGMMA_SERIALIZED in line:
                 faults.append(f"{stem}: {line.strip()}")
-    require(not faults, "ptxas reports a spill or serialized wgmmas in the attention kernels: "
-            + "; ".join(faults))
+    require(not faults, "ptxas reports a spill or serialized wgmmas in the TMA and wgmma "
+            "kernels: " + "; ".join(faults))
 
 
 def phase_kernels(dev, report) -> None:
@@ -663,9 +667,17 @@ def phase_kernels(dev, report) -> None:
                            ((1, 4, 1, 300, 64, 64, 100), False),
                            ((1, 6, 3, 96, 16, 24, 8), False)):
         check_ssd(dev, report, shape, time_it)
-    # moe_ffn_fwd (E, R, Dm, Dff): caps 8, 40 and 320; widths no tile divides
+    # moe_ffn_fwd (E, R, Dm, Dff): caps 8, 40 and 320; widths no tile divides,
+    # with rows for each tiling; 48 experts at rows on each side of the decode
+    # tiles' limit, and 64 and 65 rows at it
+    from repro_torch.kernels.moe_gemm import kernel as MK
+
     for shape, time_it in (((8, 320, 1024, 2048), True), ((8, 40, 1024, 2048), False),
-                           ((8, 8, 1024, 2048), False), ((3, 130, 200, 264), False)):
+                           ((8, 8, 1024, 2048), False), ((3, 130, 200, 264), False),
+                           ((3, 5, 200, 264), False),
+                           ((48, 8, 1024, 256), False), ((48, 72, 1024, 256), False),
+                           ((8, MK.DECODE_MAX_ROWS, 512, 1024), False),
+                           ((8, MK.DECODE_MAX_ROWS + 1, 512, 1024), False)):
         check_moe(dev, report, shape, time_it)
 
 

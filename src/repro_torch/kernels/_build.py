@@ -9,11 +9,16 @@ headers, so a build takes seconds, not minutes):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o lib<stem>-<digest>.so <package>/csrc/<stem>.cu
 
+Headers that several packages include (the Hopper pieces,
+``hopper.cuh``) live in ``repro_torch/kernels/csrc/`` (:data:`SHARED`),
+and a source includes them by a relative path (``../../csrc/hopper.cuh``).
+
 The libraries go to ``src/repro_torch/kernels/_build/`` (listed in
 ``.gitignore``) at first use.  One ``nvcc`` runs per source, all started
-together, across packages.  ``<digest>`` hashes the flags and every file
-of the package's ``csrc/``, so an edited source is rebuilt and an
-unchanged one is reused.  The compiler's output (``-Xptxas=-v``:
+together, across packages.  ``<digest>`` hashes the flags, every file of
+the package's ``csrc/`` and every file of the shared ``csrc/``, so an
+edited source or shared header is rebuilt and an unchanged one is
+reused.  The compiler's output (``-Xptxas=-v``:
 registers, shared memory, spills) is kept beside each library as
 ``<stem>-<digest>.log``.  Stems are unique across packages.
 
@@ -34,12 +39,14 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "PACKAGES", "build_all", "library", "check"]
+__all__ = ["BUILD_DIR", "PACKAGES", "SHARED", "build_all", "library", "check"]
 
 KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS / "_build"
 #: Kernel packages whose ``csrc/*.cu`` are built.
 PACKAGES = ("sojourn_eval", "flash_attention", "ssd_scan", "moe_gemm")
+#: Headers shared by the packages' sources, relative to the kernels directory.
+SHARED = "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -62,15 +69,18 @@ def _nvcc() -> str:
     )
 
 
-def _csrc(package: str) -> Path:
-    return KERNELS / package / "csrc"
+def _csrc(package: str, root: Path = KERNELS) -> Path:
+    return root / package / "csrc"
 
 
-def _digest(package: str) -> str:
+def _digest(package: str, root: Path = KERNELS) -> str:
+    """The flags, and every file of the package's ``csrc/`` and of the
+    shared one, under the kernels directory ``root``."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(_csrc(package).iterdir()):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
+    for prefix, directory in (("", _csrc(package, root)), ("shared/", root / SHARED)):
+        for path in sorted(directory.iterdir()):
+            h.update(f"{prefix}{path.name}".encode())
+            h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

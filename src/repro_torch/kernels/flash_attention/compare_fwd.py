@@ -2,9 +2,11 @@
 ``flash_fwd.cu`` (another checkout's) on the card: the instructions of
 the kernels (``cuobjdump -sass``), their ptxas lines, their outputs bit
 for bit and their times, at the serving shape (B=4, Hq=32, Hkv=8,
-S=2048, causal) and head dims 128, 112 and 64.
+S=2048, causal) and head dims 128, 112 and 64.  Given another
+``flash_bwd.cu`` as well, it holds the instructions of this tree's
+backward kernels against that one's too.
 
-    python -m repro_torch.kernels.flash_attention.compare_fwd OTHER/flash_fwd.cu
+    python -m repro_torch.kernels.flash_attention.compare_fwd OTHER/flash_fwd.cu [OTHER/flash_bwd.cu]
 
 Exits 1 unless the instructions and every output are equal.  Shows that
 moving code between sources left the kernel as it was.  Needs a CUDA card
@@ -48,19 +50,36 @@ def _events_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main(other_src: str) -> int:
-    _build.build_all()
-    this = _build._target("flash_fwd", _build._sources()["flash_fwd"][1])
-    other = _build.BUILD_DIR / "libflash_fwd-other.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(other), other_src],
+def _build_other(stem: str, src: str) -> Path | None:
+    """The library built from another source ``src``, or None if nvcc fails."""
+    other = _build.BUILD_DIR / f"lib{stem}-other.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(other), src],
                           capture_output=True, text=True)
-    print("\n".join(f"other ptxas: {line.strip()}" for line in proc.stdout.splitlines()
+    print("\n".join(f"other {stem} ptxas: {line.strip()}" for line in proc.stdout.splitlines()
                     if "registers" in line or "spill" in line or "Potential" in line))
     if proc.returncode:
         print(proc.stdout + proc.stderr)
+        return None
+    return other
+
+
+def main(other_src: str, other_bwd_src: str | None = None) -> int:
+    _build.build_all()
+    sources = _build._sources()
+    this = _build._target("flash_fwd", sources["flash_fwd"][1])
+    other = _build_other("flash_fwd", other_src)
+    if other is None:
         return 1
     same_sass = _sass(this) == _sass(other)
     print(f"instructions equal: {same_sass} ({len(_sass(this))} instructions)")
+    if other_bwd_src:
+        this_bwd = _build._target("flash_bwd", sources["flash_bwd"][1])
+        other_bwd = _build_other("flash_bwd", other_bwd_src)
+        if other_bwd is None:
+            return 1
+        same_bwd = _sass(this_bwd) == _sass(other_bwd)
+        print(f"flash_bwd instructions equal: {same_bwd} ({len(_sass(this_bwd))} instructions)")
+        same_sass &= same_bwd
     lib = ctypes.CDLL(str(other))
     lib.flash_fwd_launch.argtypes = K._SIGNATURES["flash_fwd_launch"]
     b, hq, hkv, s = SHAPE
@@ -94,7 +113,7 @@ def main(other_src: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2 or not os.path.exists(sys.argv[1]):
+    if len(sys.argv) not in (2, 3) or not all(os.path.exists(a) for a in sys.argv[1:]):
         sys.exit("usage: python -m repro_torch.kernels.flash_attention.compare_fwd "
-                 "OTHER/flash_fwd.cu")
-    sys.exit(main(sys.argv[1]))
+                 "OTHER/flash_fwd.cu [OTHER/flash_bwd.cu]")
+    sys.exit(main(*sys.argv[1:]))

@@ -68,7 +68,7 @@
 // are issued unconditionally inside the tile loop, and no division is made.
 #include <math.h>
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace flash_bwd {
 

@@ -62,7 +62,7 @@
 // and one Newton step.
 #include <math.h>
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace flash {
 

@@ -1,4 +1,5 @@
-// Per-expert SwiGLU FFN, forward, for Hopper (sm_90a): bf16 in, f32 sums.
+// Per-expert SwiGLU FFN, forward, for Hopper (sm_90a): TMA, an mbarrier ring
+// and wgmma; bf16 in, f32 sums.
 //
 // Replaces the TPU kernel repro/kernels/moe_gemm/kernel.py:
 //   moe_ffn_fwd (_kernel) -> moe_gate_up_launch + moe_down_launch
@@ -21,284 +22,276 @@
 //
 // What bounds it: operations at prefill (6 * 20480 * 6144 * 16384 =
 // 1.24e13 FLOP, 12.5 ms at 989 TFLOP/s) and bytes at decode (4.83 GB of
-// expert weights a layer, 1.44 ms at 3.35 TB/s, for 8 rows an expert).
-// Both kernels are one tiled GEMM main loop: a CTA of 8 warps owns a
-// (128 rows x BN columns) output tile of one expert and walks K in steps
-// of 32 through a 3-stage cp.async ring in shared memory; warps load
-// fragments with ldmatrix (.trans for the row-major weights) and multiply
-// with mma.sync m16n8k16 bf16 -> f32, the sums staying in registers over
-// the whole K (so the down kernel accumulates over all of Dff in registers
-// per (row tile, Dm tile)).  Ragged rows (cap 320 or 8 is no multiple of
-// 128), columns and K are predicated: cp.async zero-fills what lies past
-// an edge, and stores are masked.  Row tiles are the fastest grid axis, so
-// the CTAs that share a weight tile run together and read it once from
-// memory.  Simple on purpose: no wgmma, no TMA, no warp specialisation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Mixtral's expert weights a layer, 1.44 ms at 3.35 TB/s, for 8 rows an
+// expert; 33.8 GB, 10.1 ms, for Kimi-K2's 384 experts).
+//
+// Both launches are one GEMM, C = A · B with A (R, K) row-major (x, or act)
+// read K-major and B (K, N) row-major (wg and wu, or wd) read MN-major, so
+// neither operand is ever transposed in memory.  A CTA owns kBM rows x kBN
+// B columns of one expert and walks all of K in 64-deep steps:
+//   * one producer warpgroup (setmaxnreg.dec to 24 registers where there
+//     are two consumers) whose elected thread issues every TMA load into a
+//     ring of kStages stages, each with a "full" mbarrier (the bytes
+//     landed) and an "empty" one (every consumer warp is done with it): the
+//     A tile (kBM rows x 64 K columns, one 128-byte-swizzled panel) and
+//     kBN / 64 B panels (64 K rows x 64 N columns each);
+//   * one or two consumer warpgroups of 64 rows each that run wgmma
+//     m64nkBNk16, both operands from shared memory (B with the descriptor's
+//     transpose bit), the f32 sums in registers for the whole of K, one
+//     stage's products in flight while the next stage's wait runs.
+// The gate-up B tile is kBN / 2 columns of wg beside the same kBN / 2
+// columns of wu, so one product of width kBN yields h_g and h_u of those
+// columns side by side in the accumulator, and the epilogue forms
+// act = silu(h_g) * h_u with silu(v) = v * rcp(1 + 2^(-v log2 e)) on the
+// special-function unit (no division with a slow path: hopper.cuh's note).
+//
+// Two tilings, picked by the wrapper from R (kernel.py's block_rows):
+//   * prefill (R > 64): kBM = 128 (two consumers), kBN = 256, 4 stages of
+//     48 KB; row tiles are the fastest grid axis, so the CTAs that share a
+//     weight tile run together and read it once from memory.  Each CTA's
+//     operands are 128 x 64 and 64 x 256 a step, 85 operations a byte.
+//   * decode (R <= 64): the weights are read once and the rows are few, so
+//     what counts is the bytes in flight.  kBM = 64 (one consumer; the A
+//     box holds R rounded up to 8 rows, and the rows of the tile past it
+//     feed only output rows that are never stored), kBN = 256 for gate-up
+//     and 128 for down (Mixtral's Dm of 6144 in 256-wide tiles gives 8 x 24
+//     CTAs, 1.45 waves of 132 SMs, the last part empty; 128 gives 2.9), and
+//     as many stages as fit in 220 KB (5 or 9: 160 or 144 KB of weights in
+//     flight an SM).  The tensor work is 64 rows where 8 are real; at
+//     Kimi-K2's decode that is 2.2 ms against 10.1 ms of bytes, and it
+//     overlaps the loads.
+// Every output element is summed by one CTA in a fixed order: no split of
+// K, no atomics, so two calls give the same bits.  Ragged edges: TMA fills
+// what lies past R, K or N in an expert's plane with zeros (each expert is
+// its own plane of a 3-d tensor map, so a box never reads the next
+// expert's rows), and stores are masked.
 #include <math.h>
-#include <stdint.h>
+
+#include "../../csrc/hopper.cuh"
 
 namespace moe {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBM = 128;       // rows of a CTA tile
-constexpr int kBK = 32;        // K of a stage
-constexpr int kStages = 3;
-constexpr int kAStride = kBK + 8;  // bf16; 80-byte rows keep ldmatrix conflict-free
+using namespace hopper;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kBK = 64;                    // K of a stage: one panel of A
+constexpr int kBPanelBytes = kBK * 128;    // a B panel: 64 K rows x 64 columns
+constexpr int kSmemBudget = 220 * 1024;    // the ring's bytes at most
+constexpr int kProducerRegs = 24;          // 128 x 24 + 256 x 240 = 64 K registers
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int kConsumers, int kBN>
+struct Config {
+  static_assert(kConsumers == 1 || kConsumers == 2, "one or two consumer warpgroups");
+  static_assert(kBN == 128 || kBN == 256, "B tiles of 128 or 256 columns");
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBM = 64 * kConsumers;
+  static constexpr int kABytes = kBM * 128;  // the A panel of a stage
+  static constexpr int kBPanels = kBN / 64;
+  static constexpr int kStageBytes = kABytes + kBPanels * kBPanelBytes;
+  static constexpr int kStages = kSmemBudget / kStageBytes;
+  static constexpr int kBars = kStages * kStageBytes;  // offsets in the 1024-aligned base
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;  // + alignment slack
+};
+
+// silu(v) = v / (1 + e^-v), as v * rcp(1 + 2^(-v log2 e)): both on the
+// special-function unit.  v -> -inf gives 2^+inf = inf, rcp 0, and -0.
+__device__ __forceinline__ float silu(float v) {
+  return v * rcp_approx(1.f + exp2_approx(-v * kLog2e));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
+// out (E, rows, n) = A · B for one expert and tile; for the gate-up launch
+// (kGateUp) act = bf16(silu(x · wg) * (x · wu)) with tm_b0 = wg, tm_b1 = wu
+// and n = Dff, else out = bf16(act · wd) with tm_b0 = wd and n = Dm.
+template <int kConsumers, int kBN, bool kGateUp>
+__global__ void __launch_bounds__(Config<kConsumers, kBN>::kThreads, 1) ffn_kernel(
+    const __grid_constant__ CUtensorMap tm_a,   // (K, rows, E): x or act
+    const __grid_constant__ CUtensorMap tm_b0,  // (n, K, E): wg or wd
+    const __grid_constant__ CUtensorMap tm_b1,  // (n, K, E): wu (gate-up only)
+    __nv_bfloat16* __restrict__ out,            // (E, rows, n)
+    int rows, int n, int k, int a_box_rows) {
+  using C = Config<kConsumers, kBN>;
+  constexpr int kCols = kGateUp ? kBN / 2 : kBN;  // output columns of a CTA
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
+  const uint32_t bar_full = base + C::kBars;             // stage st at + 8 st
+  const uint32_t bar_empty = bar_full + 8 * C::kStages;  // stage st at + 8 st
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
+  const int m0 = blockIdx.x * C::kBM;
+  const int n0 = blockIdx.y * kCols;
+  const int e = blockIdx.z;
+  const int ktiles = (k + kBK - 1) / kBK;
 
-// 16 bytes global -> shared; zero-filled (nothing read) when !pred.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
-
-// A CTA's GEMM: acc[b] (its warp's MT x NT fragments) = A[rows m0.., :K] ·
-// W_b[:K, cols n0..] for NB weight matrices sharing A.  A is (M, K) and each
-// W_b is (K, N), row-major bf16, K % 8 == 0 and N % 8 == 0.
-template <int WM, int WN, int MT, int NT, int NB>
-struct Gemm {
-  static constexpr int kBN = WN * NT * 8;
-  static constexpr int kWStride = kBN + 8;  // bf16
-  static constexpr int kAElems = kBM * kAStride;
-  static constexpr int kWElems = kBK * kWStride;
-  static constexpr int kStageElems = kAElems + NB * kWElems;
-  static constexpr size_t kSmemBytes = (size_t)kStages * kStageElems * 2;
-  static_assert(WM * MT * 16 == kBM, "warps x m-tiles must cover the row tile");
-  static_assert(WM * WN * 32 == kThreads, "8 warps");
-  static_assert(NT % 2 == 0, "ldmatrix.x4.trans loads two n-tiles");
-
-  __device__ static void load_stage(__nv_bfloat16* st, const __nv_bfloat16* a,
-                                    const __nv_bfloat16* const* w, int m0, int n0, int k0,
-                                    int m, int n, int k) {
-    // A: kBM rows x kBK columns, 4 chunks of 8 a row
-    for (int c = threadIdx.x; c < kBM * (kBK / 8); c += kThreads) {
-      const int row = c / (kBK / 8);
-      const int col = (c % (kBK / 8)) * 8;
-      const bool ok = m0 + row < m && k0 + col < k;
-      const __nv_bfloat16* src = ok ? a + (size_t)(m0 + row) * k + k0 + col : a;
-      cp_async16(st + row * kAStride + col, src, ok);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 4 * kConsumers);
     }
-    // W_b: kBK rows x kBN columns
-#pragma unroll
-    for (int bi = 0; bi < NB; ++bi) {
-      __nv_bfloat16* ws = st + kAElems + bi * kWElems;
-      for (int c = threadIdx.x; c < kBK * (kBN / 8); c += kThreads) {
-        const int row = c / (kBN / 8);
-        const int col = (c % (kBN / 8)) * 8;
-        const bool ok = k0 + row < k && n0 + col < n;
-        const __nv_bfloat16* src = ok ? w[bi] + (size_t)(k0 + row) * n + n0 + col : w[bi];
-        cp_async16(ws + row * kWStride + col, src, ok);
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  __device__ static void run(float (&acc)[NB][MT][NT][4], __nv_bfloat16* smem,
-                             const __nv_bfloat16* a, const __nv_bfloat16* const* w, int m0,
-                             int n0, int m, int n, int k) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int wm = warp % WM;
-    const int wn = warp / WM;
+  // The warpgroup index, warp-uniform in the compiler's eyes.
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    // ---- producer: one thread issues every load ----
+    if constexpr (kConsumers == 2) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const uint32_t tx = a_box_rows * 128 + C::kBPanels * kBPanelBytes;
+      int st = 0;
+      uint32_t phase = 0;
+#pragma unroll 1
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(bar_empty + 8 * st, phase ^ 1);  // round 0 passes at once
+        const uint32_t full = bar_full + 8 * st;
+        const uint32_t stage = base + st * C::kStageBytes;
+        const uint32_t b = stage + C::kABytes;
+        mbar_expect_tx(full, tx);
+        tma_load(stage, &tm_a, full, kt * kBK, m0, e);
+        if constexpr (kGateUp) {
 #pragma unroll
-    for (int bi = 0; bi < NB; ++bi)
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) acc[bi][i][j][0] = acc[bi][i][j][1] = acc[bi][i][j][2] =
-            acc[bi][i][j][3] = 0.f;
-
-    const int ktiles = (k + kBK - 1) / kBK;
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < ktiles) load_stage(smem + s * kStageElems, a, w, m0, n0, s * kBK, m, n, k);
-      cp_async_commit();
-    }
-    // ldmatrix lane addressing: rows lane % 16, column half lane / 16
-    const int lrow = lane & 15;
-    const int lcol = (lane >> 4) * 8;
-    for (int kt = 0; kt < ktiles; ++kt) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      const int nk = kt + kStages - 1;  // refills the stage computed last iteration
-      if (nk < ktiles)
-        load_stage(smem + (nk % kStages) * kStageElems, a, w, m0, n0, nk * kBK, m, n, k);
-      cp_async_commit();
-
-      const __nv_bfloat16* as = smem + (kt % kStages) * kStageElems;
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        uint32_t af[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          ldmatrix_x4(af[i], as + (wm * MT * 16 + i * 16 + lrow) * kAStride + ks * 16 + lcol);
-#pragma unroll
-        for (int bi = 0; bi < NB; ++bi) {
-          const __nv_bfloat16* ws = as + kAElems + bi * kWElems;
-#pragma unroll
-          for (int j = 0; j < NT; j += 2) {
-            uint32_t bf[4];  // b0, b1 of n-tile j, then of n-tile j + 1
-            ldmatrix_x4_trans(bf, ws + (ks * 16 + lrow) * kWStride + wn * NT * 8 + j * 8 + lcol);
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              mma_bf16_16816(acc[bi][i][j], af[i], bf[0], bf[1]);
-              mma_bf16_16816(acc[bi][i][j + 1], af[i], bf[2], bf[3]);
-            }
+          for (int p = 0; p < C::kBPanels / 2; ++p) {
+            tma_load(b + p * kBPanelBytes, &tm_b0, full, n0 + 64 * p, kt * kBK, e);
+            tma_load(b + (C::kBPanels / 2 + p) * kBPanelBytes, &tm_b1, full, n0 + 64 * p,
+                     kt * kBK, e);
           }
+        } else {
+#pragma unroll
+          for (int p = 0; p < C::kBPanels; ++p)
+            tma_load(b + p * kBPanelBytes, &tm_b0, full, n0 + 64 * p, kt * kBK, e);
+        }
+        if (++st == C::kStages) {
+          st = 0;
+          phase ^= 1;
         }
       }
     }
-    cp_async_wait<0>();
-  }
-};
+  } else {
+    // ---- consumers: 64 rows each ----
+    if constexpr (kConsumers == 2) setmaxnreg_inc<kConsumerRegs>();
+    const int cw = role - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    float acc[kBN / 2];  // kBN / 8 blocks of 8 columns, 4 values a thread each
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
 
-// The gate-up GEMM: 4 x 2 warps, each 32 rows x 32 columns of h_g and h_u.
-using GateUp = Gemm<4, 2, 2, 4, 2>;
-// The down GEMM: 2 x 4 warps, each 64 rows x 32 columns.
-using Down = Gemm<2, 4, 4, 4, 1>;
+    int st = 0;
+    uint32_t phase = 0;
+    uint32_t held = 0;  // the empty barrier of the stage whose products are in flight
+#pragma unroll 1
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(bar_full + 8 * st, phase);
+      const uint32_t stage = base + st * C::kStageBytes;
+      const uint32_t a_rows = stage + cw * 64 * 128;  // this consumer's rows of the A panel
+      const uint32_t b = stage + C::kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss_mn<kBN>(acc, desc_kmajor<C::kABytes>(a_rows, kk),
+                         desc_mnmajor<kBPanelBytes>(b, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_regs(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(held);  // this warp is done with it
+      held = bar_empty + 8 * st;
+      if (++st == C::kStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
 
-// Store a warp's fragments (value(i, j, e) of m-tile i, n-tile j, element
-// e) as bf16 pairs into the
-// (m, n) row-major `out`, masked at the edges.
-template <int WM, int MT, int NT, typename F>
-__device__ __forceinline__ void store_tile(__nv_bfloat16* out, int m0, int n0, int m, int n,
-                                           F value) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
+    // ---- epilogue: this thread's rows r0 and r0 + 8, columns 8 i + col ----
+    const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+    const int r1 = r0 + 8;
+    const int col = 2 * (lane % 4);
+    __nv_bfloat16* ob = out + (size_t)e * rows * n;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn * NT * 8 + j * 8 + 2 * tq;
-      if (col >= n) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * MT * 16 + i * 16 + g + half * 8;
-        if (row >= m) continue;
-        const __nv_bfloat162 v =
-            __floats2bfloat162_rn(value(i, j, 2 * half), value(i, j, 2 * half + 1));
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * n + col) = v;
+    for (int i = 0; i < kCols / 8; ++i) {
+      const int c = n0 + 8 * i + col;  // n is a multiple of 8, so c + 1 < n with c
+      uint32_t v0, v1;
+      if constexpr (kGateUp) {  // h_g in blocks [0, kBN / 16), h_u in the next kBN / 16
+        constexpr int u = kBN / 4;
+        v0 = pack_bf16(silu(acc[4 * i]) * acc[u + 4 * i],
+                       silu(acc[4 * i + 1]) * acc[u + 4 * i + 1]);
+        v1 = pack_bf16(silu(acc[4 * i + 2]) * acc[u + 4 * i + 2],
+                       silu(acc[4 * i + 3]) * acc[u + 4 * i + 3]);
+      } else {
+        v0 = pack_bf16(acc[4 * i], acc[4 * i + 1]);
+        v1 = pack_bf16(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+      if (c < n) {
+        if (r0 < rows) *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * n + c) = v0;
+        if (r1 < rows) *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * n + c) = v1;
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) gate_up_kernel(
-    const __nv_bfloat16* __restrict__ x,   // (E, R, Dm)
-    const __nv_bfloat16* __restrict__ wg,  // (E, Dm, Dff)
-    const __nv_bfloat16* __restrict__ wu,  // (E, Dm, Dff)
-    __nv_bfloat16* __restrict__ act,       // (E, R, Dff)
-    int rows, int dm, int dff) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * GateUp::kBN;
-  const size_t e = blockIdx.z;
-  const __nv_bfloat16* w[2] = {wg + e * dm * dff, wu + e * dm * dff};
-  float acc[2][2][4][4];
-  GateUp::run(acc, smem, x + e * rows * dm, w, m0, n0, rows, dff, dm);
-  store_tile<4, 2, 4>(act + e * rows * dff, m0, n0, rows, dff,
-                      [&](int i, int j, int v) { return silu(acc[0][i][j][v]) * acc[1][i][j][v]; });
-}
-
-__global__ void __launch_bounds__(kThreads) down_kernel(
-    const __nv_bfloat16* __restrict__ act,  // (E, R, Dff)
-    const __nv_bfloat16* __restrict__ wd,   // (E, Dff, Dm)
-    __nv_bfloat16* __restrict__ out,        // (E, R, Dm)
-    int rows, int dm, int dff) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * Down::kBN;
-  const size_t e = blockIdx.z;
-  const __nv_bfloat16* w[1] = {wd + e * dff * dm};
-  float acc[1][4][4][4];
-  Down::run(acc, smem, act + e * rows * dff, w, m0, n0, rows, dm, dff);
-  store_tile<2, 4, 4>(out + e * rows * dm, m0, n0, rows, dm,
-                      [&](int i, int j, int v) { return acc[0][i][j][v]; });
+template <int kConsumers, int kBN, bool kGateUp>
+int launch(const void* a, const void* b0, const void* b1, void* out, int experts, int rows,
+           int n, int k, cudaStream_t stream) {
+  using C = Config<kConsumers, kBN>;
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  // one consumer: the A box holds the rows rounded up to 8, at most 64
+  const int a_box_rows = kConsumers == 2 || rows >= C::kBM ? C::kBM : (rows + 7) & ~7;
+  CUtensorMap tm_a, tm_b0, tm_b1;
+  if (!make_map(&tm_a, a, k, rows, experts, a_box_rows) ||
+      !make_map(&tm_b0, b0, n, k, experts, kBK) ||
+      !make_map(&tm_b1, kGateUp ? b1 : b0, n, k, experts, kBK))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ffn_kernel<kConsumers, kBN, kGateUp>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kCols = kGateUp ? kBN / 2 : kBN;
+  const dim3 grid((rows + C::kBM - 1) / C::kBM, (n + kCols - 1) / kCols, experts);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(tm_a, tm_b0, tm_b1,
+                                                  static_cast<__nv_bfloat16*>(out), rows, n, k,
+                                                  a_box_rows);
+  return (int)cudaGetLastError();
 }
 
 bool shapes_ok(int experts, int rows, int dm, int dff) {
-  return experts >= 1 && experts <= 65535 && rows >= 1 && dm % 8 == 0 && dff % 8 == 0 &&
-         dm >= 8 && dff >= 8 && dff / GateUp::kBN < 65535 && dm / Down::kBN < 65535;
-}
-
-template <typename G>
-dim3 grid(int experts, int rows, int cols) {
-  return dim3((rows + kBM - 1) / kBM, (cols + G::kBN - 1) / G::kBN, experts);
+  return experts >= 1 && experts <= 65535 && rows >= 1 && dm >= 8 && dff >= 8 &&
+         dm % 8 == 0 && dff % 8 == 0;
 }
 
 }  // namespace moe
 
-// act (E, R, Dff) = bf16(silu(x · wg) * (x · wu)); Dm and Dff multiples of 8,
-// every pointer 16-byte aligned.  Returns a cudaError_t as int
-// (cudaErrorInvalidValue for shapes it does not take).  No synchronisation.
+// act (E, R, Dff) = bf16(silu(x · wg) * (x · wu)) with CTAs of block_rows
+// rows (64 or 128) and B tiles of 256 columns (128 of wg, 128 of wu); Dm
+// and Dff multiples of 8, every pointer 16-byte aligned.  Returns a cudaError_t as int
+// (cudaErrorInvalidValue for shapes or tiles it does not take,
+// cudaErrorNotSupported without cuTensorMapEncodeTiled).  No
+// synchronisation.
 extern "C" int moe_gate_up_launch(const void* x, const void* wg, const void* wu, void* act,
-                                  int experts, int rows, int dm, int dff, void* stream) {
+                                  int experts, int rows, int dm, int dff, int block_rows,
+                                  void* stream) {
   if (!moe::shapes_ok(experts, rows, dm, dff)) return (int)cudaErrorInvalidValue;
-  const size_t smem = moe::GateUp::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(moe::gate_up_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  moe::gate_up_kernel<<<moe::grid<moe::GateUp>(experts, rows, dff), moe::kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wg),
-      static_cast<const __nv_bfloat16*>(wu), static_cast<__nv_bfloat16*>(act), rows, dm, dff);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_rows == 128)
+    return moe::launch<2, 256, true>(x, wg, wu, act, experts, rows, dff, dm, st);
+  if (block_rows == 64)
+    return moe::launch<1, 256, true>(x, wg, wu, act, experts, rows, dff, dm, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// out (E, R, Dm) = act · wd, summed in f32 over all of Dff, stored in bf16.
+// out (E, R, Dm) = act · wd, summed in f32 over all of Dff, stored in bf16,
+// with CTAs of block_rows rows (64 or 128) and B tiles of 128 or 256
+// columns (wd's) respectively.
 extern "C" int moe_down_launch(const void* act, const void* wd, void* out, int experts,
-                               int rows, int dm, int dff, void* stream) {
+                               int rows, int dm, int dff, int block_rows, void* stream) {
   if (!moe::shapes_ok(experts, rows, dm, dff)) return (int)cudaErrorInvalidValue;
-  const size_t smem = moe::Down::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(moe::down_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  moe::down_kernel<<<moe::grid<moe::Down>(experts, rows, dm), moe::kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(act), static_cast<const __nv_bfloat16*>(wd),
-      static_cast<__nv_bfloat16*>(out), rows, dm, dff);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_rows == 128)
+    return moe::launch<2, 256, false>(act, wd, nullptr, out, experts, rows, dm, dff, st);
+  if (block_rows == 64)
+    return moe::launch<1, 128, false>(act, wd, nullptr, out, experts, rows, dm, dff, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* kernel_error_string(int code) {
