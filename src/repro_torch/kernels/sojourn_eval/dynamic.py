@@ -12,11 +12,13 @@ completion times are Eqs. (7)-(9).
 * ``dynamic_sojourn_enum`` / ``dynamic_sojourn_mc`` — wrappers of the
   CUDA kernel in ``csrc/sojourn_dynamic.cu`` (design note there), which
   replace the TPU kernels of the same names.  A CUDA tensor launches the
-  kernel or raises; a CPU tensor runs the plain version.  Up to
-  ``REGISTER_JOBS`` jobs the kernel keeps each job's state in registers;
-  past that it keeps it in device scratch (16 bytes a job and thread,
-  which the wrapper allocates), so the job count is limited by memory
-  only, as the reference's is.
+  kernel or raises; a CPU tensor runs the plain version.  The kernel
+  simulates on a total order of the policy's (job, stage) entries
+  (:func:`queue_tables`) with a queue bitmask: up to ``REGISTER_WORDS``
+  mask words and ``REGISTER_SERVERS`` servers in registers, past either
+  in shared memory and, past ``SHARED_STATE_BYTES`` a block, in device
+  scratch that the wrapper allocates, so the job count is limited by
+  memory only, as the reference's is.
 * ``dynamic_sojourn_enum_torch`` / ``dynamic_sojourn_mc_torch`` — the
   plain versions: the identical state machine with the job axis
   vectorized (:func:`_sim_tile_torch`, the counterpart of
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,7 +42,13 @@ from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
 from repro_torch.obs import profiling
 
 __all__ = [
-    "REGISTER_JOBS",
+    "REGISTER_WORDS",
+    "REGISTER_SERVERS",
+    "SHARED_STATE_BYTES",
+    "QueueTables",
+    "queue_tables",
+    "digit_fields",
+    "mask_words",
     "launches",
     "sojourn_eval_dynamic",
     "dynamic_kernel_args",
@@ -49,12 +58,17 @@ __all__ = [
     "dynamic_sojourn_mc_torch",
 ]
 
-#: Largest job count the kernel holds in registers (its NMAX templates);
-#: larger groups take its scratch path.
-REGISTER_JOBS = 64
-#: Bytes of scratch a job and thread on the scratch path: (stage, stop
-#: stage) as two int32 and busy_until as a float64.
-SCRATCH_JOB_BYTES = 16
+#: Queue-mask words the kernel holds in registers (its templates 1, 2 and
+#: 4): tables of up to 256 (job, stage) entries.
+REGISTER_WORDS = 4
+#: Servers whose slots the kernel holds in registers (templates 1, 2, 4, 8).
+REGISTER_SERVERS = 8
+#: Bytes of a thread's state on the memory path: 16 for each mask word (the
+#: queue's and the stops') and for each server slot (busy_until, rank, job).
+STATE_BYTES = 16
+#: A block's state in shared memory on the memory path, at most
+#: (``kSharedStateBytes``); past that it goes to device scratch.
+SHARED_STATE_BYTES = 96 * 1024
 #: Combination indices per tile of the plain versions.
 PLAIN_TILE = 1 << 15
 
@@ -66,8 +80,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "dynamic_enum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P, _I, _P, _P, _P],
-    "dynamic_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _I, _P, _I, _P, _P, _P],
+    "dynamic_enum_launch": [_P] * 8 + [_I, _I, _I, _I, _LL, _I, _I, _P, _I, _P, _P, _P],
+    "dynamic_mc_launch": [_P] * 6 + [_I, _I, _I, _I, _LL, _U, _U, _I, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -193,14 +207,89 @@ def dynamic_sojourn_mc_torch(cdf, stage_durs, idx_tables, radix, seed, n_samples
 
 
 # ---------------------------------------------------------------------------
+# The kernel's tables: a total order of the (job, stage) entries
+# ---------------------------------------------------------------------------
+
+
+class QueueTables(NamedTuple):
+    """Every policy's ranked (job, stage) entries, ``L = N * M`` slots each;
+    the slots past a policy's ranked entries hold duration 0 and links -1."""
+
+    dur: torch.Tensor  # (P, L) float64: duration of the entry of rank r
+    link: torch.Tensor  # (P, L, 2) int32: (rank of (j, s + 1) or -1, 2 j + (s == M_j - 1))
+    rank_of: torch.Tensor  # (P, N, M) int32: rank of (j, s), or -1 when unranked
+    q0: torch.Tensor  # (P, mask_words(N, M)) int64: bits of every job's stage-0 rank
+
+
+def mask_words(n: int, m: int) -> int:
+    """64-bit words of a mask over the ``n * m`` entries of a table."""
+    return -(-(n * m) // 64)
+
+
+def queue_tables(idx_tables, stage_durs, radix) -> QueueTables:
+    """Rank each policy's seatable entries by (index, job, stage).
+
+    An entry (j, s) with s < M_j is seatable when its index is neither
+    +inf nor NaN (-inf is).  This is the lockstep dispatch's rule: a
+    strict ``<`` in job order never seats a +inf or NaN index and breaks
+    ties by the lower job; each job waits at one stage at a time, so the
+    stage only orders a job's own entries.  -0.0 ranks as 0.0.  Runs on the
+    tensors' device with no synchronisation.
+    """
+    p_pols, n, m = idx_tables.shape
+    dev = idx_tables.device
+    size = n * m
+    stage = torch.arange(m, device=dev)
+    radix = radix.to(torch.int64)
+    seat = ((stage[None, :] < radix[:, None])[None]
+            & ~torch.isnan(idx_tables) & (idx_tables != math.inf)).reshape(p_pols, size)
+    key = torch.where(seat, idx_tables.reshape(p_pols, size) + 0.0, math.inf)
+    order = torch.sort(key, dim=1, stable=True).indices  # flat j * m + s, ranked first
+    ranked = seat.gather(1, order)
+    ranks = torch.arange(size, device=dev).expand(p_pols, size)
+    rank_of = torch.full_like(order, -1).scatter_(1, order, ranks)
+    rank_of = torch.where(seat, rank_of, -1).reshape(p_pols, n, m)
+    job, st = order // m, order % m
+    nxt = torch.cat([rank_of, torch.full((p_pols, n, 1), -1, dtype=rank_of.dtype,
+                                         device=dev)], dim=2).reshape(p_pols, -1)
+    succ = nxt.gather(1, job * (m + 1) + st + 1)
+    link = torch.stack([succ, 2 * job + (st == radix[job] - 1).to(torch.int64)], dim=2)
+    link = torch.where(ranked[..., None], link, -1)
+    dur = torch.where(ranked, stage_durs.reshape(-1)[order], 0.0)
+    first = rank_of[:, :, 0]  # (P, N)
+    bits = torch.where(first >= 0, torch.ones_like(first) << (first % 64), 0)
+    q0 = torch.zeros((p_pols, mask_words(n, m)), dtype=torch.int64, device=dev)
+    q0.scatter_add_(1, first.clamp(min=0) // 64, bits)  # distinct bits: the sum is the OR
+    return QueueTables(dur, link.to(torch.int32).contiguous(), rank_of.to(torch.int32),
+                       q0)
+
+
+def digit_fields(radix) -> torch.Tensor:
+    """(N, 2) int32 (lo, mask): job j's digit of the enumeration's packed
+    mixed-radix index sits in bits [lo, lo + width) of a 64-bit word, width
+    ``ceil(log2 M_j)``, job N - 1 lowest.  An index below 2**31 needs at
+    most 40 bits (``ceil(log2 r) / log2 r`` is at most 1.29, at r = 5)."""
+    radix = radix.to(torch.int64)
+    width = ((1 << torch.arange(32, device=radix.device))[None, :] < radix[:, None]).sum(1)
+    lo = width.flip(0).cumsum(0).flip(0) - width
+    return torch.stack([lo, (1 << width) - 1], dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _scratch_per_thread(n: int) -> int:
-    """Scratch bytes a thread of the kernel needs for ``n`` jobs: none up to
-    REGISTER_JOBS (registers hold them)."""
-    return 0 if n <= REGISTER_JOBS else SCRATCH_JOB_BYTES * n
+def _scratch_per_thread(n: int, m: int, n_servers: int) -> int:
+    """Scratch bytes a thread of the kernel needs: none on the register path
+    (``REGISTER_WORDS`` mask words, ``REGISTER_SERVERS`` servers) or while a
+    block's state fits ``SHARED_STATE_BYTES``."""
+    words, w = mask_words(n, m), min(n_servers, n)
+    state = STATE_BYTES * (words + w)
+    if (words <= REGISTER_WORDS and w <= REGISTER_SERVERS) or \
+            K.THREADS * state <= SHARED_STATE_BYTES:
+        return 0
+    return state
 
 
 def _check_common(tab, stage_durs, idx_tables, radix, total_stages, n_servers):
@@ -239,12 +328,14 @@ def dynamic_sojourn_enum(
             probs, stage_durs, idx_tables, strides, radix, k_total, total_stages,
             n_servers,
         )
+    qt = queue_tables(idx_tables, stage_durs, radix)
+    fields = digit_fields(radix)
     out = K.launch(
         "sojourn_dynamic", _SIGNATURES, "dynamic_enum_launch", dev, p_pols, k_total,
-        (probs.data_ptr(), stage_durs.data_ptr(), idx_tables.data_ptr(),
-         strides.data_ptr(), radix.data_ptr(), p_pols, n, m, k_total, total_stages,
-         min(n_servers, n)),
-        scratch_per_thread=_scratch_per_thread(n),
+        (probs.data_ptr(), strides.data_ptr(), radix.data_ptr(), fields.data_ptr(),
+         qt.dur.data_ptr(), qt.link.data_ptr(), qt.rank_of.data_ptr(), qt.q0.data_ptr(),
+         p_pols, n, m, mask_words(n, m), k_total, total_stages, min(n_servers, n)),
+        scratch_per_thread=_scratch_per_thread(n, m, n_servers),
     )
     launches["dynamic_sojourn_enum"] += 1
     return out
@@ -272,12 +363,13 @@ def dynamic_sojourn_mc(
             cdf, stage_durs, idx_tables, radix, seed, n_samples, total_stages,
             n_servers,
         )
+    qt = queue_tables(idx_tables, stage_durs, radix)
     out = K.launch(
         "sojourn_dynamic", _SIGNATURES, "dynamic_mc_launch", dev, p_pols, n_samples,
-        (cdf.data_ptr(), stage_durs.data_ptr(), idx_tables.data_ptr(),
-         radix.data_ptr(), p_pols, n, m, n_samples, k0, k1, total_stages,
-         min(n_servers, n)),
-        scratch_per_thread=_scratch_per_thread(n),
+        (cdf.data_ptr(), radix.data_ptr(), qt.dur.data_ptr(), qt.link.data_ptr(),
+         qt.rank_of.data_ptr(), qt.q0.data_ptr(), p_pols, n, m, mask_words(n, m), n_samples,
+         k0, k1, total_stages, min(n_servers, n)),
+        scratch_per_thread=_scratch_per_thread(n, m, n_servers),
     )
     launches["dynamic_sojourn_mc"] += 1
     return out

@@ -39,8 +39,8 @@ THREADS = 256
 #: Blocks a launch aims for across all its orders (132 SMs on an H100).
 TARGET_BLOCKS = 4096
 #: Blocks of a launch whose threads each hold scratch in device memory
-#: (the dynamic kernel past its register templates): four an SM, so the
-#: scratch is that of the threads the card can run at once.
+#: (the dynamic kernel when its state outgrows shared memory): four an SM,
+#: so the scratch is that of the threads the card can run at once.
 SCRATCH_BLOCKS = 4 * 132
 #: Index counts must fit the kernels' 32-bit decode / counter words.
 MAX_COUNT = (1 << 31) - 1

@@ -9,10 +9,11 @@ register templates, against the reference on the CPU.
   S))`` with the seed that ``evaluate_many`` draws from the same
   generator; at N = 62 the count does not wrap and the two
   ``evaluate_many`` agree directly.
-* SR and SERPT over more than 64 jobs (the CUDA kernel's register
-  templates hold at most 64; a larger group takes its scratch path on
-  the card, which ``chip_smoke.py`` holds against the plain version).
-  Here the plain versions run against the reference's XLA paths.
+* SR and SERPT over more than 64 jobs (the CUDA kernel holds tables of
+  up to 256 (job, stage) entries in registers and larger ones in shared
+  memory or device scratch, which ``chip_smoke.py`` holds against the
+  plain version).  Here the plain versions run against the reference's
+  XLA paths.
 
 The reference's evaluator enters float64 through the removed
 ``jax.experimental.enable_x64`` (ROADMAP, R1); ``ref_x64`` aliases it
@@ -142,13 +143,20 @@ def test_dynamic_past_64_jobs_with_infinite_index_as_reference():
 
 
 def test_scratch_path_sizing():
-    """Past REGISTER_JOBS jobs the wrapper hands the kernel 16 bytes of
-    scratch a job and thread, on a grid cut to SCRATCH_BLOCKS blocks."""
+    """The kernel holds REGISTER_WORDS queue-mask words (N M <= 256) and
+    REGISTER_SERVERS servers in registers, then a block's state in up to
+    SHARED_STATE_BYTES of shared memory; only past that does the wrapper
+    hand it scratch, 16 bytes a mask word and server slot for each thread
+    of a grid cut to SCRATCH_BLOCKS blocks."""
     from repro_torch.kernels.sojourn_eval import kernel as K
 
-    assert D.REGISTER_JOBS == 64
-    assert D._scratch_per_thread(64) == 0
-    assert D._scratch_per_thread(65) == 65 * D.SCRATCH_JOB_BYTES == 1040
+    assert (D.REGISTER_WORDS, D.REGISTER_SERVERS, D.SHARED_STATE_BYTES) == (4, 8, 96 << 10)
+    assert D.mask_words(128, 2) == 4 and D.mask_words(129, 2) == 5
+    assert D._scratch_per_thread(80, 2, 1) == 0  # registers: phase 3b's group
+    assert D._scratch_per_thread(65, 2, 2) == 0
+    assert D._scratch_per_thread(160, 2, 1) == 0  # shared memory: 6 words, 1 slot
+    assert D._scratch_per_thread(736, 2, 1) == 0  # 24 words and slots: 96 KB a block
+    assert D._scratch_per_thread(737, 2, 1) == 25 * D.STATE_BYTES == 400
     assert K.blocks_per_order(1 << 20, 2, K.SCRATCH_BLOCKS) == K.SCRATCH_BLOCKS // 2
     assert K.blocks_per_order(1 << 20, 2) == K.TARGET_BLOCKS // 2
     assert K.blocks_per_order(300, 1, K.SCRATCH_BLOCKS) == 2  # at most one index a thread
