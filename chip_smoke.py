@@ -11,13 +11,17 @@ Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
    once) and print its registers and spills, and any wgmma serialization
-   ptxas reports; the TMA and wgmma kernels (``CLEAN_PTXAS``: attention
-   and the MoE FFN) must show neither;
+   ptxas reports; the TMA and wgmma kernels and the dynamic sojourn
+   kernel (``CLEAN_PTXAS``: attention, the MoE FFN, ``sojourn_dynamic``)
+   must show neither;
 1. hold each of the ten kernels against its plain PyTorch version on
    the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
-   ROADMAP fault R2, and the dynamic kernel's scratch path past 64 jobs
-   at N = 65, 80 and 160), ``flash_fwd`` in bf16 to the tolerances
+   ROADMAP fault R2, groups of 65, 80 and 160 jobs, and the dynamic
+   kernel's paths on both sides of each limit: N M = 64 and 65, 256 and
+   258 entries, W = 8 and 9, W >= N, and state past shared memory in
+   device scratch, each with a second call bitwise equal to the first),
+   ``flash_fwd`` in bf16 to the tolerances
    ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
    (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64, 112
    and 128, ragged lengths, rows that see no key) to ``FLASH_BWD_REL_L2``,
@@ -36,8 +40,8 @@ Phases, each of which must pass:
    only: ``evaluate_many`` at N=26 (K = 2**26, the exact cap), at N=8,
    M=3 with OPTIMAL (8! orders x 3**8 combinations) and at N=27
    (K = 2**27, streamed with 2**23 samples).  Then ``evaluate_many`` at
-   N=80 two-stage jobs (K = 2**80) must take the streamed tier, the
-   dynamic kernel its scratch path.  Then a constant index table through
+   N=80 two-stage jobs (K = 2**80) must take the streamed tier.  Then a
+   constant index table through
    the dynamic kernel must give the static RANK order's value at N=26;
 4. drive the explicit-outcome path: ``enumerate_outcomes`` at N=21
    (K = 2**21) evaluated for RANK and SR, and ``sample_outcomes`` with
@@ -242,7 +246,7 @@ SOURCES = {
 SEED = 0x5EED_CAFE
 #: Sources whose ptxas log must show no spill and no serialized wgmma
 #: (info C7518, which makes ptxas wait for each product before the next).
-CLEAN_PTXAS = ("flash_fwd", "flash_bwd", "moe_ffn")
+CLEAN_PTXAS = ("flash_fwd", "flash_bwd", "moe_ffn", "sojourn_dynamic")
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 #: The serving phases: 4 requests of 2048 prompt tokens, 32 steps each.
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
@@ -524,25 +528,30 @@ def phase_build() -> None:
             if (spill and (int(spill.group(1)) or int(spill.group(2)))) or \
                     WGMMA_SERIALIZED in line:
                 faults.append(f"{stem}: {line.strip()}")
-    require(not faults, "ptxas reports a spill or serialized wgmmas in the TMA and wgmma "
-            "kernels: " + "; ".join(faults))
+    require(not faults, "ptxas reports a spill or serialized wgmmas in "
+            f"{CLEAN_PTXAS}: " + "; ".join(faults))
 
 
 def phase_kernels(dev, report) -> None:
     """Phase 1: every kernel against its plain version on the card, at mid
     sizes and at the N=8, M=3 shapes of the OPTIMAL cell."""
     import numpy as np
+    import torch
 
     from repro_torch.core import evaluator, policies
     from repro_torch.core.jobs import JobSpec, generate_workload
     from repro_torch.kernels.sojourn_eval import dynamic as D
     from repro_torch.kernels.sojourn_eval import kernel as K
 
-    def compare(name, shape, kernel, plain, args, kwargs=None, time_it=False):
+    def compare(name, shape, kernel, plain, args, kwargs=None, time_it=False, twice=False):
         kwargs = kwargs or {}
         label = f"{shape} {kwargs}" if kwargs else shape
-        check_against_plain(report, name, label, kernel(*args, **kwargs),
-                            plain(*args, **kwargs))
+        got = kernel(*args, **kwargs)
+        check_against_plain(report, name, label, got, plain(*args, **kwargs))
+        if twice:
+            again = kernel(*args, **kwargs)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                    f"{name} {label}: a second call differs from the first")
         if time_it:
             r = report[name]
             r["phase1_shape"] = shape
@@ -565,12 +574,12 @@ def phase_kernels(dev, report) -> None:
         compare("dynamic_sojourn_enum", "N=16 M=2 K=2^16 P=2 (SR, SERPT)",
                 D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
                 dynamic_args(jobs, tables, dev), {"n_servers": w},
-                time_it=w == 1)
+                time_it=w == 1, twice=True)
     for w in (1, 2, 3):
         compare("dynamic_sojourn_mc", "N=16 M=2 S=2^18 P=2 (SR, SERPT)",
                 D.dynamic_sojourn_mc, D.dynamic_sojourn_mc_torch,
                 dynamic_args(jobs, tables, dev, (SEED, 1 << 18)),
-                {"n_servers": w}, time_it=w == 1)
+                {"n_servers": w}, time_it=w == 1, twice=True)
 
     # the OPTIMAL cell's shapes: 512-order batches of 8 jobs x 3 stages
     rng = np.random.default_rng(8)
@@ -581,7 +590,7 @@ def phase_kernels(dev, report) -> None:
     tables = [policies.index_table(jobs, "sr"), policies.index_table(jobs, "serpt")]
     compare("dynamic_sojourn_enum", "N=8 M=3 K=3^8 P=2 (SR, SERPT)",
             D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
-            dynamic_args(jobs, tables, dev))
+            dynamic_args(jobs, tables, dev), twice=True)
 
     # fault R2: a job that never succeeds has rank index +inf
     jobs = generate_workload(np.random.default_rng(12), 12)
@@ -590,11 +599,11 @@ def phase_kernels(dev, report) -> None:
     require(bool(np.isinf(table).any()), "the R2 case has no +inf rank index")
     compare("dynamic_sojourn_enum", "N=12 M=2 K=2^12 P=1 (rank table with a +inf index)",
             D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
-            dynamic_args(jobs, [table], dev))
+            dynamic_args(jobs, [table], dev), twice=True)
 
-    # the dynamic kernel's scratch path past 64 jobs: a group of 65 of which
-    # 17 have two stages (K = 2**17) enumerated on 1 and 2 servers; groups of
-    # 80 and 160 two-stage jobs streamed; R2's +inf index at N = 66
+    # groups past 64 jobs: 65 of which 17 have two stages (K = 2**17)
+    # enumerated on 1 and 2 servers; 80 and 160 two-stage jobs streamed
+    # (registers and shared memory); R2's +inf index at N = 66
     rng = np.random.default_rng(65)
     mixed = []
     for i in range(65):
@@ -605,18 +614,63 @@ def phase_kernels(dev, report) -> None:
     for w in (1, 2):
         compare("dynamic_sojourn_enum", "N=65 (17 of two stages) K=2^17 P=2 (SR, SERPT)",
                 D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
-                dynamic_args(mixed, tables, dev), {"n_servers": w})
+                dynamic_args(mixed, tables, dev), {"n_servers": w}, twice=True)
     for n, log2_samples in ((80, 16), (160, 14)):
         jobs = generate_workload(np.random.default_rng(n), n)
         tables = [policies.index_table(jobs, "sr"), policies.index_table(jobs, "serpt")]
         compare("dynamic_sojourn_mc", f"N={n} M=2 S=2^{log2_samples} P=2 (SR, SERPT)",
                 D.dynamic_sojourn_mc, D.dynamic_sojourn_mc_torch,
-                dynamic_args(jobs, tables, dev, (SEED, 1 << log2_samples)))
+                dynamic_args(jobs, tables, dev, (SEED, 1 << log2_samples)), twice=True)
     jobs = generate_workload(np.random.default_rng(66), 66)
     jobs[9] = JobSpec(sizes=[1.0, 3.0], probs=[1.0, 0.0], job_id=jobs[9].job_id)
     compare("dynamic_sojourn_mc", "N=66 M=2 S=2^14 P=1 (rank table with a +inf index)",
             D.dynamic_sojourn_mc, D.dynamic_sojourn_mc_torch,
-            dynamic_args(jobs, [policies.index_table(jobs, "rank")], dev, (SEED, 1 << 14)))
+            dynamic_args(jobs, [policies.index_table(jobs, "rank")], dev, (SEED, 1 << 14)),
+            twice=True)
+
+    # the dynamic kernel's limits (csrc/sojourn_dynamic.cu): one and two mask
+    # words (N M = 64, 65), the last register template and the shared-memory
+    # path (N M = 256, 258), the last register slots and the shared-memory
+    # path (W = 8, 9), W >= N in registers and in shared memory, and a
+    # block's state past SHARED_STATE_BYTES in device scratch (W = 30 at
+    # N = 30; 24 mask words at N = 737)
+    def group(n, stages, seed):
+        """``n`` jobs, job i of ``stages[i]`` stages (one past the list)."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for i in range(n):
+            k = stages[i] if i < len(stages) else 1
+            out.append(JobSpec(sizes=np.cumsum(rng.uniform(0.5, 3.0, k)).tolist(),
+                               probs=[1.0 / k] * k, job_id=i))
+        return out
+
+    def dyn(label, jobs, w, samples=None, pols=("sr", "serpt")):
+        mc = samples is not None
+        compare("dynamic_sojourn_mc" if mc else "dynamic_sojourn_enum", label,
+                D.dynamic_sojourn_mc if mc else D.dynamic_sojourn_enum,
+                D.dynamic_sojourn_mc_torch if mc else D.dynamic_sojourn_enum_torch,
+                dynamic_args(jobs, [policies.index_table(jobs, p) for p in pols], dev, samples),
+                {"n_servers": w}, twice=True)
+
+    dyn("N=32 (16 of two stages) K=2^16, N M = 64", group(32, [2] * 16, 32), 1)
+    dyn("N=13 (one of five stages, six of two) K=320, N M = 65", group(13, [5] + [2] * 6, 13),
+        2)
+    j128 = generate_workload(np.random.default_rng(128), 128)
+    dyn("N=128 M=2 S=2^14, N M = 256", j128, 1, (SEED, 1 << 14))
+    j129 = generate_workload(np.random.default_rng(129), 129)
+    dyn("N=129 M=2 S=2^14, N M = 258: shared memory", j129, 1, (SEED, 1 << 14))
+    dyn("N=129 (14 of two stages) K=2^14, N M = 258: shared memory",
+        group(129, [2] * 14, 129), 3)
+    j16 = generate_workload(np.random.default_rng(16), 16)
+    for w in (8, 9):
+        dyn(f"N=16 M=2 S=2^16 W={w}", j16, w, (SEED, 1 << 16))
+    dyn("N=16 M=2 K=2^16 W=16 (W >= N): shared memory", j16, 16)
+    j5 = generate_workload(np.random.default_rng(5), 5, 3)
+    for w in (4, 5):
+        dyn(f"N=5 M=3 K=3^5 W={w}: registers", j5, w)
+    dyn("N=30 (10 of two stages) K=2^10 W=30: device scratch", group(30, [2] * 10, 30), 30)
+    j737 = generate_workload(np.random.default_rng(737), 737)
+    dyn("N=737 M=2 S=2^12, 24 mask words: device scratch", j737, 1, (SEED, 1 << 12), ("sr",))
 
     # explicit outcome tables: an enumerated one and a sampled one
     jobs = generate_workload(np.random.default_rng(16), 16)
@@ -1043,7 +1097,8 @@ def phase_main_path() -> dict:
 def phase_large_group() -> dict:
     """Phase 3b: ``evaluate_many`` over LARGE_GROUP two-stage jobs, K =
     2**80 (an int64 count wraps at 63 such jobs): every policy must take the
-    streamed tier, and SR and SERPT the dynamic kernel's scratch path."""
+    streamed tier (SR and SERPT the dynamic kernel's register path, three
+    mask words)."""
     import numpy as np
 
     from repro_torch.core import evaluator
@@ -1685,16 +1740,16 @@ def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report)
             f"{plain_ms:.1f} ms; "
             f"bound {b_ms:.4f} ms ({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
 
-    # the dynamic kernel's scratch path at phase 3b's group: N=80, S=2^20, SR
+    # the dynamic kernel at phase 3b's group: N=80, S=2^20, SR
     jobs = large_group["jobs"]
     args = dynamic_args(jobs, [policies.index_table(jobs, "sr")], dev,
                         (SEED, LARGE_GROUP_SAMPLES))
     ms, _ = cuda_ms(lambda: D.dynamic_sojourn_mc(*args), 3)
     flops = dynamic_flops(jobs, 1, LARGE_GROUP_SAMPLES, mc=True)
     b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8)
-    shape = f"N={LARGE_GROUP} M=2 S=2^20 P=1 (SR) W=1, scratch path"
-    report["dynamic_sojourn_mc"].update(scratch_path_shape=shape, scratch_path_ms=ms,
-                                        scratch_path_bound_ms=b_ms)
+    shape = f"N={LARGE_GROUP} M=2 S=2^20 P=1 (SR) W=1"
+    report["dynamic_sojourn_mc"].update(large_group_shape=shape, large_group_ms=ms,
+                                        large_group_bound_ms=b_ms)
     log(f"[timing] dynamic_sojourn_mc {shape}: {ms:.3f} ms, median of 3 runs; bound {b_ms:.4f} ms "
         f"({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
 
@@ -1912,8 +1967,8 @@ def main() -> int:
                                        "max_state_rel_l2", "library", "launches_by_path",
                                        "dropped_share", "decode_shape", "decode_ms",
                                        "decode_bound_ms", "decode_bound_by", "more_shapes",
-                                       "scratch_path_shape", "scratch_path_ms",
-                                       "scratch_path_bound_ms") if key in r},
+                                       "large_group_shape", "large_group_ms",
+                                       "large_group_bound_ms") if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
         })
