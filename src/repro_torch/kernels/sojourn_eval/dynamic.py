@@ -98,6 +98,16 @@ def _sim_tile_torch(s, succ, idx_table, stage_durs, *, total_stages, n_servers=1
     successful completion times, summed completion times, successes.
     ``argmin`` keeps the first minimum, as the kernels' strict ``<``
     running minimum does.
+
+    The dispatch follows the reference's Pallas kernel (the strict ``<``
+    running minimum from +inf of ``_lockstep_sim._dispatch_one`` in
+    ``repro/kernels/sojourn_eval/dynamic.py``), which the CUDA kernel's
+    ranks reproduce: a NaN index is mapped to +inf and never seated, a
+    -inf index is seated first, and a job is seated when the minimum is
+    ``< inf``.  On NaN and
+    -inf indices this departs on purpose from the reference's XLA path
+    (``_sim_tile_xla``), which seats only a finite minimum (ROADMAP R7);
+    on finite and +inf tables the two agree.
     """
     tile, n = s.shape
     m = idx_table.shape[1]
@@ -116,9 +126,9 @@ def _sim_tile_torch(s, succ, idx_table, stage_durs, *, total_stages, n_servers=1
     def dispatch_one(stage, busy, nbusy, clock):
         idx, dur = tables(stage)
         queued = (busy == inf) & (stage <= s)
-        idxq = torch.where(queued, idx, inf)
+        idxq = torch.where(queued & ~torch.isnan(idx), idx, inf)
         j = torch.argmin(idxq, dim=1)  # first minimum: ties by position
-        can = (nbusy < w_srv) & torch.isfinite(idxq.min(dim=1).values)
+        can = (nbusy < w_srv) & (idxq.min(dim=1).values < inf)
         sel = (j[:, None] == job_ids) & can[:, None] & queued
         busy = torch.where(sel, clock[:, None] + dur, busy)
         return busy, nbusy + can.to(torch.int64)

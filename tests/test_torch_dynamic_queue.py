@@ -21,9 +21,11 @@ source note).  A CUDA kernel does not run here, so:
   ``jax.enable_x64``, as ``tests/test_torch_dynamic.py`` runs it).
 
 A -inf index is seated by the kernels (and by the reference's Pallas
-kernel) but not by the XLA path or the plain version, which seat only a
-finite minimum; no policy table holds one, so the model is held to the
-plain version on finite and +inf tables only.
+kernel) but not by the XLA path, which seats only a finite minimum; no
+policy table holds one, so here the model is held to the plain version on
+finite and +inf tables only.  P4 is repaired: the plain version now seats
+as the kernels do, and ``test_torch_dynamic_nonfinite.py`` holds it to
+the model and to the Pallas kernel on NaN and -inf tables.
 """
 
 import dataclasses
