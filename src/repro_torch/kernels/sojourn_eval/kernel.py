@@ -12,6 +12,13 @@ Dispatch is by device: a CUDA tensor launches the kernel (or raises), a
 CPU tensor runs the plain PyTorch version (``*_torch``), which tiles the
 index range as the ``lax.scan`` paths of the JAX package do.
 ``launches`` counts kernel launches and nothing else.
+
+The enumeration kernel walks each order's combinations in service order:
+a thread decodes one prefix (the first N - L positions) and walks the
+last L positions as an odometer from the prefix's state
+(:func:`suffix_length` picks L).  Its plain version computes every
+combination's value in the same order of operations (:func:`_enum_terms`),
+so the two differ only in the order of the sum over combinations.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ __all__ = [
     "sojourn_mc",
     "sojourn_outcomes",
     "sojourn_enum_torch",
+    "suffix_length",
+    "enum_prefixes",
     "sojourn_mc_torch",
     "sojourn_outcomes_torch",
 ]
@@ -42,6 +51,12 @@ TARGET_BLOCKS = 4096
 #: (the dynamic kernel when its state outgrows shared memory): four an SM,
 #: so the scratch is that of the threads the card can run at once.
 SCRATCH_BLOCKS = 4 * 132
+#: Service positions a ``sojourn_enum`` thread walks after its prefix, at
+#: most (``kMaxSuffix`` in the source: one template a length, 0 to 8).
+MAX_SUFFIX = 8
+#: Threads a ``sojourn_enum`` launch aims for, one an (order, prefix): two
+#: 256-thread blocks an SM on 132 SMs take 67,584 at once.
+ENUM_THREADS = 1 << 16
 #: Index counts must fit the kernels' 32-bit decode / counter words.
 MAX_COUNT = (1 << 31) - 1
 #: Soft cap on bytes of per-tile intermediates in the plain versions.
@@ -56,7 +71,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "sojourn_enum_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
+    "sojourn_enum_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sojourn_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _P, _P, _P],
     "sojourn_outcomes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
 }
@@ -158,6 +173,49 @@ def _accumulate(d, succ, w, e_succ, e_all) -> None:
 # ---------------------------------------------------------------------------
 
 
+def enum_prefixes(n: int, suffix: int, k_total: int) -> int:
+    """Prefixes of an order whose last ``suffix`` of ``n`` positions are
+    walked: ``k_total ** ((n - suffix) / n)``, exact when every job has the
+    same stage count and an estimate otherwise (the kernel counts each
+    order's own and walks them all, whatever the grid)."""
+    return max(1, round(k_total ** ((n - suffix) / n)))
+
+
+def suffix_length(n: int, n_orders: int, k_total: int) -> int:
+    """L for :func:`sojourn_enum`: the longest suffix, at most
+    ``min(n, MAX_SUFFIX)``, whose prefixes over all ``n_orders`` orders
+    still give ``ENUM_THREADS`` threads, so that the launch fills the
+    card while each thread shares its prefix over as many combinations as
+    it can.  0 (a thread a combination) when even that falls short: the
+    launch is small.  At N = 26, M = 2, P = 1 it is 8; at N = 8, M = 3,
+    P = 512 (the OPTIMAL search's batches) 3; an empty prefix (L = N)
+    takes P >= ENUM_THREADS at N <= MAX_SUFFIX."""
+    for length in range(min(n, MAX_SUFFIX), 0, -1):
+        if n_orders * k_total ** ((n - length) / n) >= ENUM_THREADS * (1 - 1e-12):
+            return length
+    return 0
+
+
+def _enum_terms(sizes_p, probs_p, s, radix):
+    """Each combination's ``(w, tot, tsum, cnt)`` (T, P) from its stop stages
+    ``s`` (T, P, N) in service order, as the kernel computes them: the
+    weight product and the completion times and their sums added position
+    by position."""
+    d = _permuted_gather(sizes_p, s)
+    p = _permuted_gather(probs_p, s)
+    succ = s == radix - 1
+    w = torch.ones(s.shape[:2], dtype=torch.float64, device=s.device)
+    t, tsum, tot = torch.zeros_like(w), torch.zeros_like(w), torch.zeros_like(w)
+    cnt = torch.zeros(s.shape[:2], dtype=torch.int64, device=s.device)
+    for pos in range(s.shape[2]):
+        w = w * p[..., pos]  # Eq. (8)
+        t = t + d[..., pos]  # completion time of the pos-th served job
+        tsum = tsum + t
+        tot = torch.where(succ[..., pos], tot + t, tot)
+        cnt = cnt + succ[..., pos].to(torch.int64)
+    return w, tot, tsum, cnt
+
+
 def sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total: int):
     """Plain version of :func:`sojourn_enum` on any device."""
     p_orders, n, _ = sizes_p.shape
@@ -170,8 +228,10 @@ def sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total: int):
     for lo in range(0, k_total, tile):
         k = torch.arange(lo, min(lo + tile, k_total), device=dev)
         s = (k[:, None, None] // strides) % radix  # (T, P, N) decode
-        w = _permuted_gather(probs_p, s).prod(dim=2)  # Eq. (8)
-        _accumulate(_permuted_gather(sizes_p, s), s == radix - 1, w, e_succ, e_all)
+        w, tot, tsum, cnt = _enum_terms(sizes_p, probs_p, s, radix)
+        mean = torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)  # Eq. (7)
+        e_succ += (w * mean).sum(dim=0)  # Eq. (9)
+        e_all += (w * (tsum / n)).sum(dim=0)
     return e_succ, e_all
 
 
@@ -182,7 +242,12 @@ def sojourn_enum(
     radix_p: torch.Tensor,  # (P, N) int32 permuted stage counts
     k_total: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact (E[sojourn successful], E[sojourn all]) per order, fused."""
+    """Exact (E[sojourn successful], E[sojourn all]) per order, fused.
+
+    The kernel walks the last :func:`suffix_length` service positions of
+    each combination from its thread's prefix; ``strides_p`` is the plain
+    version's decode (the kernel enumerates in service order and needs
+    none)."""
     p_orders, n, m = sizes_p.shape
     dev = sizes_p.device
     check_tensor("sizes_p", sizes_p, torch.float64, (p_orders, n, m), dev)
@@ -192,10 +257,11 @@ def sojourn_enum(
     check_count("k_total", k_total)
     if dev.type == "cpu":
         return sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total)
+    suffix = suffix_length(n, p_orders, k_total)
     out = launch(
-        "sojourn_static", _SIGNATURES, "sojourn_enum_launch", dev, p_orders, k_total,
-        (sizes_p.data_ptr(), probs_p.data_ptr(), strides_p.data_ptr(),
-         radix_p.data_ptr(), p_orders, n, m, k_total),
+        "sojourn_static", _SIGNATURES, "sojourn_enum_launch", dev, p_orders,
+        enum_prefixes(n, suffix, k_total),
+        (sizes_p.data_ptr(), probs_p.data_ptr(), radix_p.data_ptr(), p_orders, n, m, suffix),
     )
     launches["sojourn_enum"] += 1
     return out
