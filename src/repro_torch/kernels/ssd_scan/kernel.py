@@ -13,7 +13,10 @@ Dispatch is by device: a CUDA tensor launches the kernel (bf16 x, Bm and
 Cm; N <= 128 and P <= 64, multiples of 8; a chunk of at most 256 steps)
 or raises; a CPU tensor runs the plain PyTorch version,
 :func:`ssd_fwd_torch`, which is the Pallas kernel's arithmetic chunk by
-chunk, in float32.  ``launches`` counts kernel launches and nothing else.
+chunk, in float32.  ``launches`` counts calls that launch the kernel, and
+nothing else: each such call makes two CUDA launches, the chunks' state
+increments and then y (the source's note), with the increments in device
+scratch that the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ launches = {"ssd_fwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"ssd_fwd_launch": [_P] * 7 + [_I] * 7 + [_P]}
+_SIGNATURES = {"ssd_fwd_launch": [_P] * 9 + [_I] * 7 + [_P]}
 
 
 def _check(x, dt, da, Bm, Cm, chunk: int) -> int:
@@ -97,10 +100,15 @@ def ssd_fwd(
     with torch.cuda.device(dev):
         y = torch.empty_like(x)
         state = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
+        # scratch: each chunk's state increment, transposed and padded to
+        # 64 x (64 or 128), and each chunk's decay
+        delta = torch.empty((b * h, s // c, 64, 64 if n <= 64 else 128), dtype=torch.float32,
+                            device=dev)
+        decay = torch.empty((b * h, s // c), dtype=torch.float32, device=dev)
         code = lib.ssd_fwd_launch(
             x.data_ptr(), dt.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, h, g, s, n, p, c,
-            torch.cuda.current_stream(dev).cuda_stream,
+            y.data_ptr(), state.data_ptr(), delta.data_ptr(), decay.data_ptr(),
+            b, h, g, s, n, p, c, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "ssd_fwd_launch")
     launches["ssd_fwd"] += 1
