@@ -11,22 +11,28 @@ Phases, each of which must pass:
 
 0. build every kernel with ``nvcc`` (one process per source, all at
    once) and print its registers and spills, and any wgmma serialization
-   ptxas reports; the TMA and wgmma kernels and the dynamic sojourn
-   kernel (``CLEAN_PTXAS``: attention, the MoE FFN, ``sojourn_dynamic``)
-   must show neither;
+   ptxas reports; the TMA and wgmma kernels and the sojourn kernels
+   (``CLEAN_PTXAS``: attention, the MoE FFN, the SSD scan,
+   ``sojourn_dynamic`` and ``sojourn_static``) must show neither;
 1. hold each of the ten kernels against its plain PyTorch version on
    the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
    ROADMAP fault R2, groups of 65, 80 and 160 jobs, and the dynamic
    kernel's paths on both sides of each limit: N M = 64 and 65, 256 and
    258 entries, W = 8 and 9, W >= N, and state past shared memory in
-   device scratch, each with a second call bitwise equal to the first),
+   device scratch, and tables with NaN and -inf indices on 1 and 2
+   servers, each with a second call bitwise equal to the first;
+   ``sojourn_enum`` at its suffix's limits: the rule's largest L, L = 0,
+   an empty prefix (P = 2^16), M = 2, 3 and 4 and mixed radices, each
+   with a second call bitwise equal, and timed at the OPTIMAL search's
+   batches, N=8 M=3 P=512),
    ``flash_fwd`` in bf16 to the tolerances
    ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
    (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64, 112
    and 128, ragged lengths, rows that see no key) to ``FLASH_BWD_REL_L2``,
    and a second call of each bitwise equal to the first, ``ssd_fwd`` (two groups,
-   several chunks, ragged chunks and padded N and P) and ``moe_ffn_fwd``
+   several chunks, ragged chunks and padded N and P, a second call bitwise
+   equal) and ``moe_ffn_fwd``
    (caps 8, 40 and 320, ragged widths and rows in both tilings, 48
    experts, rows on both sides of its decode tiles' limit, and a second
    call bitwise equal to the first) to ``SSD_REL_L2`` /
@@ -39,7 +45,10 @@ Phases, each of which must pass:
 3. drive the evaluator's main path at full size, through the kernels
    only: ``evaluate_many`` at N=26 (K = 2**26, the exact cap), at N=8,
    M=3 with OPTIMAL (8! orders x 3**8 combinations) and at N=27
-   (K = 2**27, streamed with 2**23 samples).  Then ``evaluate_many`` at
+   (K = 2**27, streamed with 2**23 samples), each's host wall logged,
+   and the N=8 cell once more under ``torch.profiler`` for its
+   ``sojourn_enum`` kernel time summed over its launches.  Then
+   ``evaluate_many`` at
    N=80 two-stage jobs (K = 2**80) must take the streamed tier.  Then a
    constant index table through
    the dynamic kernel must give the static RANK order's value at N=26;
@@ -101,8 +110,12 @@ Phases, each of which must pass:
    composition beside ``moe_ffn_fwd`` (at the prefill shapes of Mixtral
    and Kimi-K2; the kernel also at both decode shapes, each shape held
    against those phases 5c and 5d launched) as their library
-   yardsticks, and reckon each kernel's bound.  Phase 1 times each at
-   its mid sizes as well.  Each time is the median of calls timed one by
+   yardsticks, and reckon each kernel's bound: the work any kernel that
+   meets the bars must do (``static_flops``, ``ssd_work``), with the
+   counts of the earlier kernels' way of doing it beside the enumeration's
+   and the SSD scan's; the run fails if a kernel's time is below its
+   bound at any shape (a share over 100% means a wrong count).  Phase 1
+   times each at its mid sizes as well.  Each time is the median of calls timed one by
    one behind a sleep on the card (``PREFILL_CYCLES``), so it measures
    the card and not the host.
 
@@ -213,10 +226,12 @@ TRAIN_GRAD_REL_L2 = 5e-2
 #: median of calls timed one by one (cuda_ms).
 PREFILL_CYCLES = 100_000_000
 #: H100 SXM published peaks (NVIDIA data sheet): float64 vector rate,
-#: dense bf16 tensor-core rate and HBM bandwidth, at the full 700 W limit.
+#: dense bf16 and TF32 tensor-core rates and HBM bandwidth, at the full
+#: 700 W limit.
 FP64_FLOPS = 34e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 SOJOURN_SRC = "src/repro_torch/kernels/sojourn_eval/csrc/"
 REPLACES = {
@@ -246,7 +261,8 @@ SOURCES = {
 SEED = 0x5EED_CAFE
 #: Sources whose ptxas log must show no spill and no serialized wgmma
 #: (info C7518, which makes ptxas wait for each product before the next).
-CLEAN_PTXAS = ("flash_fwd", "flash_bwd", "moe_ffn", "sojourn_dynamic")
+CLEAN_PTXAS = ("flash_fwd", "flash_bwd", "moe_ffn", "sojourn_dynamic", "sojourn_static",
+               "ssd_fwd")
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 #: The serving phases: 4 requests of 2048 prompt tokens, 32 steps each.
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
@@ -391,24 +407,42 @@ def dynamic_args(jobs, tables, dev, samples=None):
 # ---------------------------------------------------------------------------
 
 
-def static_flops(jobs, n_orders: int, count: int, mc: bool) -> float:
-    """Float64 operations of the static kernel.  Per position: the weight
-    product (enum) or M CDF compares and the uniform's scaling (MC), and
-    the two completion-time adds; per success one add; per lane the
-    Eq. (7)/(9) tail (two divides, two products, two sums).  Integer
-    div/mod, Threefry's uint32 arithmetic and selects are not counted.
-    Success adds are exact for the enumeration and their expectation
-    for MC."""
+def static_flops(jobs, orders, count: int, mc: bool) -> float:
+    """Float64 operations that the static function needs for the orders
+    ``orders`` (P, N).  MC: per position M CDF compares, the uniform's
+    scaling and the two completion-time adds, per success (in
+    expectation) one add, per sample the Eq. (7)/(9) tail (two divides,
+    two products, two sums).  Enumeration: a walk that shares service-order
+    prefixes serves position q once for each distinct prefix through q,
+    prod_{i <= q} M_(i) times (4 operations: the weight product, two
+    completion-time adds and the success add), and each of the K
+    combinations takes the six-operation tail.  Integer work, Threefry's
+    uint32 arithmetic and selects are not counted."""
     import numpy as np
 
     from repro_torch.core import policies
 
     _, probs, num_stages = policies.padded_arrays(jobs)
-    n, m = probs.shape
-    p_succ = probs[np.arange(n), num_stages - 1]
-    per_pos = (m + 3) if mc else 3
-    succ_adds = count * float(p_succ.sum()) if mc else float(sum(count // r for r in num_stages))
-    return n_orders * (count * (per_pos * n + 6) + succ_adds)
+    orders = np.asarray(orders)
+    if mc:
+        n, m = probs.shape
+        p_succ = probs[np.arange(n), num_stages - 1]
+        return len(orders) * (count * ((m + 3) * n + 6) + count * float(p_succ.sum()))
+    prefixes = np.cumprod(num_stages[orders].astype(np.float64), axis=1)  # (P, N)
+    return float(4.0 * prefixes.sum() + 6.0 * count * len(orders))
+
+
+def static_flops_full_decode(jobs, n_orders: int, count: int) -> float:
+    """The enumeration's float64 count when every combination serves all N
+    positions (the weight product and two adds each), plus one add a
+    success and the six-operation tail: the bound of a kernel that decodes
+    each combination on its own, reported beside :func:`static_flops`'s."""
+    from repro_torch.core import policies
+
+    _, _, num_stages = policies.padded_arrays(jobs)
+    n = len(num_stages)
+    succ_adds = float(sum(count // r for r in num_stages))
+    return n_orders * (count * (3 * n + 6) + succ_adds)
 
 
 def dynamic_flops(jobs, n_pols: int, count: int, mc: bool) -> float:
@@ -464,27 +498,44 @@ def flash_flops(b: int, hq: int, sq: int, skv: int, d: int, causal: bool) -> flo
     return 4.0 * d * attention_pairs(b, hq, sq, skv, causal)
 
 
-def ssd_work(b, h, g, s, n, p, chunk) -> tuple[float, float, int]:
-    """(bf16 tensor ops, float32 ops, bytes) that one SSD scan needs: per
-    chunk, C·Bᵀ (2N) and the scores times x (2P) for each visible (t, s)
-    pair, t >= s, and the carried-state term and the state update (2 x
-    2 C N P).  The masks, exps and scalings are not counted, so the bound
-    is a lower one.  Bytes: x, dt, dA, B, C read once, y and the state
+def ssd_work(b, h, g, s, n, p, chunk) -> dict:
+    """What one SSD scan needs, whatever computes it: per chunk, C·Bᵀ (2N)
+    and the scores times x (2P) for each visible (t, s) pair, t >= s, and
+    the carried-state term and the state update (2 C N P each): ``bf16``
+    tensor operations (C·Bᵀ, both operands bf16) and ``tf32`` ones (the
+    three products with a float32 operand); ``f32``, the mask's float32
+    work for each visible pair (the exponential, the subtraction and two
+    multiplies); ``bytes``, x, dt, dA, B, C read once and y and the state
     written once."""
     pairs = chunk * (chunk + 1) / 2
     chunks = b * h * (s // chunk)
-    tensor_ops = chunks * 2.0 * n * pairs
-    f32_ops = chunks * (2.0 * p * pairs + 4.0 * chunk * n * p)
-    io_bytes = b * h * s * p * 2 * 2 + b * h * s * 4 * 2 + b * g * s * n * 2 * 2 + b * h * n * p * 4
-    return tensor_ops, f32_ops, io_bytes
+    return {
+        "bf16": chunks * 2.0 * n * pairs,
+        "tf32": chunks * (2.0 * p * pairs + 4.0 * chunk * n * p),
+        "f32": chunks * 4.0 * pairs,
+        "bytes": (b * h * s * p * 2 * 2 + b * h * s * 4 * 2 + b * g * s * n * 2 * 2
+                  + b * h * n * p * 4),
+    }
 
 
-def ssd_bound(tensor_ops: float, f32_ops: float, io_bytes: int) -> tuple[float, str]:
-    """The least time: the largest of the tensor-core part over the bf16
-    peak, the float32 part over the float32 vector peak (the two units can
+def ssd_bound(work: dict) -> tuple[float, str]:
+    """The least time: the largest of the tensor-core part (C·Bᵀ over the
+    bf16 peak plus the float32-operand products over the TF32 peak, half
+    the bf16 rate), the mask over the float32 vector peak (the two units can
     run at once) and the bytes over the memory rate."""
-    times = {"operations": max(tensor_ops / BF16_FLOPS, f32_ops / FP32_FLOPS) * 1e3,
-             "bytes": io_bytes / HBM_BYTES_PER_S * 1e3}
+    times = {"operations": max(work["bf16"] / BF16_FLOPS + work["tf32"] / TF32_FLOPS,
+                               work["f32"] / FP32_FLOPS) * 1e3,
+             "bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def ssd_bound_cuda_cores(work: dict) -> tuple[float, str]:
+    """The bound when only C·Bᵀ runs on the tensor cores and the three
+    float32-operand products on the float32 vector units (the mask left
+    out): reported beside :func:`ssd_bound`'s."""
+    times = {"operations": max(work["bf16"] / BF16_FLOPS, work["tf32"] / FP32_FLOPS) * 1e3,
+             "bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3}
     by = max(times, key=times.get)
     return times[by], by
 
@@ -581,12 +632,19 @@ def phase_kernels(dev, report) -> None:
                 dynamic_args(jobs, tables, dev, (SEED, 1 << 18)),
                 {"n_servers": w}, time_it=w == 1, twice=True)
 
-    # the OPTIMAL cell's shapes: 512-order batches of 8 jobs x 3 stages
+    # the OPTIMAL cell's shapes: 512-order batches of 8 jobs x 3 stages; the
+    # enumeration there is timed too (the median of 10 calls)
     rng = np.random.default_rng(8)
     jobs = generate_workload(rng, 8, 3)
     orders = np.stack([rng.permutation(8) for _ in range(512)])
+    optimal_args = static_args(jobs, orders, dev)
     compare("sojourn_enum", "N=8 M=3 K=3^8 P=512", K.sojourn_enum, K.sojourn_enum_torch,
-            static_args(jobs, orders, dev))
+            optimal_args, twice=True)
+    cuda_ms(lambda: K.sojourn_enum(*optimal_args), 2)  # warm up
+    optimal_ms, _ = cuda_ms(lambda: K.sojourn_enum(*optimal_args), 10)
+    report["sojourn_enum"].update(optimal_shape="N=8 M=3 K=3^8 P=512 (the OPTIMAL search's "
+                                  "batches)", optimal_shape_ms=optimal_ms)
+    log(f"  sojourn_enum N=8 M=3 K=3^8 P=512: {optimal_ms:.4f} ms, median of 10 calls")
     tables = [policies.index_table(jobs, "sr"), policies.index_table(jobs, "serpt")]
     compare("dynamic_sojourn_enum", "N=8 M=3 K=3^8 P=2 (SR, SERPT)",
             D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
@@ -671,6 +729,58 @@ def phase_kernels(dev, report) -> None:
     dyn("N=30 (10 of two stages) K=2^10 W=30: device scratch", group(30, [2] * 10, 30), 30)
     j737 = generate_workload(np.random.default_rng(737), 737)
     dyn("N=737 M=2 S=2^12, 24 mask words: device scratch", j737, 1, (SEED, 1 << 12), ("sr",))
+
+    # P4: tables with a NaN and a -inf index, through both dynamic kernels on
+    # 1 and 2 servers (the plain version seats a -inf index first and never a
+    # NaN one, as the kernel's ranks do): the three-job probe of ROADMAP P4
+    # and an 8-job group
+    probe = [JobSpec(sizes=[1.0, 3.0], probs=[0.3, 0.7], job_id=0),
+             JobSpec(sizes=[1.5, 2.0], probs=[0.5, 0.5], job_id=1),
+             JobSpec(sizes=[2.0, 3.0], probs=[0.2, 0.8], job_id=2)]
+    j8 = generate_workload(np.random.default_rng(88), 8)
+    for label, jobs, base in (("N=3 M=2 (the P4 probe)", probe,
+                               np.array([[1.0, 2.0], [0.0, 3.0], [0.7, 0.2]])),
+                              ("N=8 M=2", j8, policies.index_table(j8, "sr"))):
+        tables = []
+        for value, at in ((math.nan, ((1, 0),)), (-math.inf, ((1, 0),)),
+                          (math.nan, ((0, 1), (2, 0))), (-math.inf, ((2, 1), (0, 0)))):
+            table = np.array(base, dtype=np.float64)
+            for j, st in at:
+                table[j, st] = value
+            tables.append(table)
+        for w in (1, 2):
+            compare("dynamic_sojourn_enum", f"{label} NaN and -inf tables P=4",
+                    D.dynamic_sojourn_enum, D.dynamic_sojourn_enum_torch,
+                    dynamic_args(jobs, tables, dev), {"n_servers": w}, twice=True)
+            compare("dynamic_sojourn_mc", f"{label} NaN and -inf tables S=2^16 P=4",
+                    D.dynamic_sojourn_mc, D.dynamic_sojourn_mc_torch,
+                    dynamic_args(jobs, tables, dev, (SEED, 1 << 16)), {"n_servers": w},
+                    twice=True)
+
+    # sojourn_enum at its suffix's limits, as kernel.suffix_length picks L
+    # from (N, P, K): its largest L (N=24, P=1: MAX_SUFFIX), L = 0 (too few
+    # combinations to fill the card), an empty prefix (L = N, P = 2^16) and
+    # values between; M = 2, 3 and 4 and mixed radices with single-stage jobs
+    def enum_case(label, jobs, n_orders, want_length):
+        rng = np.random.default_rng(len(jobs) * n_orders)
+        orders = np.stack([rng.permutation(len(jobs)) for _ in range(n_orders)])
+        args = static_args(jobs, orders, dev)
+        length = K.suffix_length(len(jobs), n_orders, args[-1])
+        require(length == want_length, f"sojourn_enum {label}: L={length}, not {want_length}")
+        compare("sojourn_enum", f"{label} P={n_orders} L={length}", K.sojourn_enum,
+                K.sojourn_enum_torch, args, twice=True)
+
+    enum_case("N=24 M=2 K=2^24", generate_workload(np.random.default_rng(24), 24), 1,
+              K.MAX_SUFFIX)
+    enum_case("N=12 M=3 K=3^12", generate_workload(np.random.default_rng(12), 12, 3), 1, 1)
+    enum_case("N=8 M=4 K=4^8", generate_workload(np.random.default_rng(84), 8, 4), 512, 4)
+    enum_case("N=6 M=4 K=4^6, empty prefix", generate_workload(np.random.default_rng(64), 6, 4),
+              1 << 16, 6)
+    mixed10 = group(10, [3, 2, 4, 1, 2, 3, 2, 4, 2, 3], 10)
+    enum_case("N=10 mixed radices K=13824", mixed10, 1, 0)
+    enum_case("N=10 mixed radices K=13824", mixed10, 512, 4)
+    enum_case("N=7 mixed radices K=288, empty prefix", group(7, [3, 2, 4, 1, 2, 3, 2], 7),
+              1 << 16, 7)
 
     # explicit outcome tables: an enumerated one and a sampled one
     jobs = generate_workload(np.random.default_rng(16), 16)
@@ -930,7 +1040,8 @@ def ssd_inputs(dev, b, h, g, s, n, p, seed=0):
 
 def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
     """``ssd_fwd`` against its plain version on inputs of ``shape`` (B, H,
-    G, S, N, P, chunk); returns the timings asked for."""
+    G, S, N, P, chunk), and a second call bitwise equal to the first (no
+    sum is split across CTAs); returns the timings asked for."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -945,7 +1056,10 @@ def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
     else:
         y, st = SK.ssd_fwd(*args, chunk=chunk)
         y_p, st_p = SK.ssd_fwd_torch(*args, chunk=chunk)
+    y2, st2 = SK.ssd_fwd(*args, chunk=chunk)
     torch.cuda.synchronize()
+    require(bool(torch.equal(y, y2)) and bool(torch.equal(st, st2)),
+            f"ssd_fwd {shape}: a second call differs from the first")
     require(bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(st).all()),
             f"ssd_fwd {shape}: non-finite output")
     err_y, err_st = rel_l2(y, y_p), rel_l2(st, st_p)
@@ -1071,7 +1185,7 @@ def phase_main_path() -> dict:
     ]
     workloads = {}
     reset_counts()
-    results = []
+    results, walls = [], []
     for label, seed, n, m, algs, mc_samples in cells:
         rng = np.random.default_rng(seed)
         jobs = generate_workload(rng, n, m)
@@ -1080,6 +1194,7 @@ def phase_main_path() -> dict:
         res = evaluator.evaluate_many(jobs, algs, rng, mc_samples=mc_samples)
         secs = time.perf_counter() - t0
         results.append((label, res))
+        walls.append(secs)
         log(f"[main path] {label}: {res} in {secs:.3f} s (host clock, results on host)")
     counts = read_counts()
     log(f"[main path] launches: {counts}")
@@ -1091,7 +1206,19 @@ def phase_main_path() -> dict:
             f"OPTIMAL {opt['optimal']!r} above RANK {opt['rank']!r}")
     for name in ("sojourn_enum", "sojourn_mc", "dynamic_sojourn_enum", "dynamic_sojourn_mc"):
         require(counts[name] > 0, f"kernel {name} was not launched on the main path")
-    return {"launches": counts, "workloads": workloads}
+    # the N=8 OPTIMAL cell once more under torch.profiler: its sojourn_enum
+    # kernel time summed over its launches, beside the host wall above
+    _, seed, n, _, algs, mc_samples = cells[1]
+    enum_ms, enum_calls, device_ms = profiled_kernel_ms(
+        lambda: evaluator.evaluate_many(workloads[n], algs, np.random.default_rng(seed),
+                                        mc_samples=mc_samples), "enum_kernel")
+    optimal_cell = {"host_s": walls[1], "enum_kernel_ms": enum_ms, "enum_launches": enum_calls,
+                    "device_ms": device_ms}
+    log(f"[main path] N=8 OPTIMAL cell, profiled once more: sojourn_enum kernel "
+        f"{enum_ms if enum_ms is None else f'{enum_ms:.3f}'} ms over {enum_calls} launches, all "
+        f"device time {device_ms if device_ms is None else f'{device_ms:.3f}'} ms, against a "
+        f"host wall of {walls[1]:.3f} s unprofiled")
+    return {"launches": counts, "workloads": workloads, "optimal_cell": optimal_cell}
 
 
 def phase_large_group() -> dict:
@@ -1708,13 +1835,12 @@ def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report)
     j21, (outcomes, weights) = outcomes_path["jobs"], outcomes_path["table"]
     j26, j27 = workloads[26], workloads[27]
     s = 1 << 23
+    rank26, rank27 = policies.rank_order(j26)[None], policies.rank_order(j27)[None]
     cases = [
         ("sojourn_enum", "N=26 M=2 K=2^26 P=1 (RANK)", K.sojourn_enum, K.sojourn_enum_torch,
-         static_args(j26, policies.rank_order(j26)[None], dev), 3,
-         static_flops(j26, 1, 1 << 26, mc=False)),
+         static_args(j26, rank26, dev), 3, static_flops(j26, rank26, 1 << 26, mc=False)),
         ("sojourn_mc", "N=27 M=2 S=2^23 P=1 (RANK)", K.sojourn_mc, K.sojourn_mc_torch,
-         static_args(j27, policies.rank_order(j27)[None], dev, (SEED, s)), 3,
-         static_flops(j27, 1, s, mc=True)),
+         static_args(j27, rank27, dev, (SEED, s)), 3, static_flops(j27, rank27, s, mc=True)),
         # one run: the K=2^26 dynamic enumeration is the slowest kernel call
         ("dynamic_sojourn_enum", "N=26 M=2 K=2^26 P=1 (SR) W=1", D.dynamic_sojourn_enum,
          D.dynamic_sojourn_enum_torch,
@@ -1733,12 +1859,22 @@ def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report)
         ms, got = cuda_ms(lambda: fn(*args), reps)
         plain_ms, want = cuda_ms(lambda: plain(*args), 1)
         check_against_plain(report, name, shape, got, want)
+        if name == "sojourn_enum":
+            again = fn(*args)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                    f"{name} {shape}: a second call differs from the first")
         b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8)
         report[name].update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, reps=reps)
         log(f"[timing] {name} {shape}: {ms:.3f} ms, median of {reps} run(s), plain "
             f"{plain_ms:.1f} ms; "
             f"bound {b_ms:.4f} ms ({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
+    old_flops = static_flops_full_decode(j26, 1, 1 << 26)
+    old_ms, _ = bound_ms(old_flops, tensor_bytes(cases[0][4]), 2 * 8)
+    r = report["sojourn_enum"]
+    r.update(bound_ms_full_decode=old_ms)
+    log(f"[timing] sojourn_enum N=26: the full-decode bound {old_ms:.4f} ms ({old_flops:.4g} "
+        f"float64 ops) beside the shared-prefix one {r['bound_ms']:.4f} ms")
 
     # the dynamic kernel at phase 3b's group: N=80, S=2^20, SR
     jobs = large_group["jobs"]
@@ -1800,13 +1936,17 @@ def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report)
     # ssd_fwd at the Mamba2-1.3B prefill shape: one layer's scan
     shape = (SERVE_BATCH, 64, 1, SERVE_PROMPT, 128, 64, 256)
     t = check_ssd(dev, report, shape, time_it=True)
-    tensor_ops, f32_ops, io_bytes = ssd_work(*shape)
-    b_ms, b_by = ssd_bound(tensor_ops, f32_ops, io_bytes)
+    work = ssd_work(*shape)
+    b_ms, b_by = ssd_bound(work)
+    old_ms, old_by = ssd_bound_cuda_cores(work)
     report["ssd_fwd"].update(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"],
-                             bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=None)
+                             bound_ms=b_ms, bound_by=b_by, reps=10, library_ms=None,
+                             bound_ms_cuda_cores=old_ms)
     log(f"[timing] ssd_fwd (B, H, G, S, N, P, chunk)={shape}: {t['ms']:.3f} ms, median of 10 runs, "
-        f"plain {t['plain_ms']:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {tensor_ops:.4g} bf16 "
-        f"tensor ops, {f32_ops:.4g} f32 ops, {io_bytes / 1e6:.1f} MB): {b_ms / t['ms']:.2%} of it")
+        f"plain {t['plain_ms']:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {work['bf16']:.4g} bf16 "
+        f"and {work['tf32']:.4g} TF32-rate tensor ops, {work['f32']:.4g} f32 ops, "
+        f"{work['bytes'] / 1e6:.1f} MB): {b_ms / t['ms']:.2%} of it; with the three float32 "
+        f"products on the CUDA cores {old_ms:.4f} ms ({old_by})")
 
     # moe_ffn_fwd at the serving shapes of phases 5c and 5d
     for i, (name, shapes) in enumerate(moe_shapes.items()):
@@ -1875,10 +2015,9 @@ def time_moe(dev, report, name, shapes, first) -> None:
     torch.cuda.empty_cache()
 
 
-def profiled_device_ms(fn, top: int = 0, tag: str = "") -> float | None:
-    """Milliseconds of kernels and copies on the card during one call of
-    ``fn``, from ``torch.profiler``; None when the trace holds no device
-    time.  With ``top``, logs the ``top`` kernels by device time."""
+def device_kernels(fn) -> list:
+    """``torch.profiler``'s averages of the kernels and copies on the card
+    during one call of ``fn``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1887,13 +2026,51 @@ def profiled_device_ms(fn, top: int = 0, tag: str = "") -> float | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profiled_device_ms(fn, top: int = 0, tag: str = "") -> float | None:
+    """Milliseconds of kernels and copies on the card during one call of
+    ``fn``, from ``torch.profiler``; None when the trace holds no device
+    time.  With ``top``, logs the ``top`` kernels by device time."""
+    kernels = device_kernels(fn)
     us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:top]:
         t = e.self_device_time_total
         log(f"{tag} {t / 1e3:9.2f} ms ({t / us:6.2%}) x{e.count:<5d} {e.key[:100]}")
     return us / 1e3 or None
+
+
+def profiled_kernel_ms(fn, key: str) -> tuple[float | None, int, float | None]:
+    """(milliseconds of the kernels whose name holds ``key``, their
+    launches, milliseconds of every kernel and copy) on the card during one
+    call of ``fn``, from ``torch.profiler``; the times are None when the
+    trace holds no device time."""
+    kernels = device_kernels(fn)
+    hits = [e for e in kernels if key in e.key]
+    total = sum(e.self_device_time_total for e in kernels)
+    if not total:
+        return None, sum(e.count for e in hits), None
+    return (sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits),
+            total / 1e3)
+
+
+def check_shares(kernels: list[dict]) -> None:
+    """Raise if a bound exceeds the time it bounds, at any shape of the
+    report: a share of the bound over 100% means that the bound counts work
+    that no kernel has to do."""
+    faults = []
+    for k in kernels:
+        pairs = [("", k["bound_ms"], k["ms"])]
+        pairs += [(f" {row['shape']}", row["bound_ms"], row["ms"])
+                  for row in k.get("more_shapes", [])]
+        for prefix in ("decode", "large_group"):
+            if f"{prefix}_ms" in k:
+                pairs.append((f" {prefix}", k[f"{prefix}_bound_ms"], k[f"{prefix}_ms"]))
+        faults += [f"{k['name']}{where}: bound {b:.4f} ms, measured {ms:.4f} ms"
+                   for where, b, ms in pairs if b > ms]
+    require(not faults, "a share of the bound reads over 100%: " + "; ".join(faults))
 
 
 def nvidia_smi() -> str:
@@ -1944,6 +2121,7 @@ def main() -> int:
     report["moe_ffn_fwd"]["launches_by_path"] = moe_by_path
     report["moe_ffn_fwd"]["dropped_share"] = {"mixtral-8x22b": mixtral["dropped_share"],
                                               "kimi-k2-1t-a32b": kimi["dropped_share"]}
+    report["sojourn_enum"]["optimal_cell"] = main_path["optimal_cell"]
     sojourn_by_path = {name: main_path["launches"][name] + large_group["launches"][name]
                        for name in ("sojourn_enum", "sojourn_mc", "dynamic_sojourn_enum",
                                     "dynamic_sojourn_mc")}
@@ -1968,10 +2146,13 @@ def main() -> int:
                                        "dropped_share", "decode_shape", "decode_ms",
                                        "decode_bound_ms", "decode_bound_by", "more_shapes",
                                        "large_group_shape", "large_group_ms",
-                                       "large_group_bound_ms") if key in r},
+                                       "large_group_bound_ms", "bound_ms_full_decode",
+                                       "bound_ms_cuda_cores", "optimal_shape",
+                                       "optimal_shape_ms", "optimal_cell") if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
         })
+    check_shares(kernels)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
