@@ -24,8 +24,9 @@ Phases, each of which must pass:
    servers, each with a second call bitwise equal to the first;
    ``sojourn_enum`` at its suffix's limits: the rule's largest L, L = 0,
    an empty prefix (P = 2^16), M = 2, 3 and 4 and mixed radices, each
-   with a second call bitwise equal, and timed at the OPTIMAL search's
-   batches, N=8 M=3 P=512),
+   with a second call bitwise equal, NaN on both sides for an order whose
+   strides or count are not its radix's, and timed at the OPTIMAL
+   search's batches, N=8 M=3 P=512),
    ``flash_fwd`` in bf16 to the tolerances
    ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
    (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64, 112
@@ -35,8 +36,8 @@ Phases, each of which must pass:
    equal) and ``moe_ffn_fwd``
    (caps 8, 40 and 320, ragged widths and rows in both tilings, 48
    experts, rows on both sides of its decode tiles' limit, and a second
-   call bitwise equal to the first) to ``SSD_REL_L2`` /
-   ``SSD_STATE_REL`` and ``MOE_REL_L2``.  The MoE and SSD autograd
+   call bitwise equal to the first) to ``ssd_scan.kernel``'s ``SSD_REL_L2``
+   / ``SSD_STATE_REL`` and ``MOE_REL_L2``.  The MoE and SSD autograd
    Functions (kernel forward, reference backward) give gradients within
    ``MOE_GRAD_REL_L2`` / ``SSD_GRAD_REL_L2`` of autograd through their
    plain versions;
@@ -157,11 +158,6 @@ FLASH_LSE_ATOL = 1e-4
 #: unrelated logits, a relative L2 error near 1.4.
 SERVE_REL_L2 = 0.1
 SERVE_MAX_ABS = 0.5
-#: ssd_fwd against its plain version: y is bf16 on both sides (one ulp is
-#: 2**-8 relative) after float32 sums in another order, and C·Bᵀ sums bf16
-#: products on the tensor cores; the state stays float32 on both sides.
-SSD_REL_L2 = 1e-2
-SSD_STATE_REL = 1e-3
 #: moe_ffn_fwd against its plain version: the activation and the output are
 #: rounded to bf16 on both sides after float32 sums in another order.
 MOE_REL_L2 = 1e-2
@@ -414,9 +410,10 @@ def static_flops(jobs, orders, count: int, mc: bool) -> float:
     expectation) one add, per sample the Eq. (7)/(9) tail (two divides,
     two products, two sums).  Enumeration: a walk that shares service-order
     prefixes serves position q once for each distinct prefix through q,
-    prod_{i <= q} M_(i) times (4 operations: the weight product, two
-    completion-time adds and the success add), and each of the K
-    combinations takes the six-operation tail.  Integer work, Threefry's
+    prod_{i <= q} M_(i) times (3 operations: the weight product and two
+    completion-time adds), adds the success for each such prefix that
+    ends in a success at q, prod_{i < q} M_(i) of them, and gives each of
+    the K combinations the six-operation tail.  Integer work, Threefry's
     uint32 arithmetic and selects are not counted."""
     import numpy as np
 
@@ -428,8 +425,10 @@ def static_flops(jobs, orders, count: int, mc: bool) -> float:
         n, m = probs.shape
         p_succ = probs[np.arange(n), num_stages - 1]
         return len(orders) * (count * ((m + 3) * n + 6) + count * float(p_succ.sum()))
-    prefixes = np.cumprod(num_stages[orders].astype(np.float64), axis=1)  # (P, N)
-    return float(4.0 * prefixes.sum() + 6.0 * count * len(orders))
+    stages = num_stages[orders].astype(np.float64)  # (P, N), in service order
+    prefixes = np.cumprod(stages, axis=1)  # distinct prefixes through q
+    successes = prefixes / stages  # those of them that succeed at q
+    return float(3.0 * prefixes.sum() + successes.sum() + 6.0 * count * len(orders))
 
 
 def static_flops_full_decode(jobs, n_orders: int, count: int) -> float:
@@ -781,6 +780,28 @@ def phase_kernels(dev, report) -> None:
     enum_case("N=10 mixed radices K=13824", mixed10, 512, 4)
     enum_case("N=7 mixed radices K=288, empty prefix", group(7, [3, 2, 4, 1, 2, 3, 2], 7),
               1 << 16, 7)
+    # strides that are not an order's radix's, or a count that is not their
+    # product: NaN for those orders on the card as in the plain version, the
+    # other orders' results unchanged
+    rng = np.random.default_rng(3)
+    sizes_p, probs_p, strides_p, radix_p, k_total = static_args(
+        mixed10, np.stack([rng.permutation(10) for _ in range(3)]), dev)
+    good = K.sojourn_enum(sizes_p, probs_p, strides_p, radix_p, k_total)
+    wrong = strides_p.clone()
+    wrong[1, 0] += 1
+    for label, strides, count, bad in (("a wrong stride in order 1", wrong, k_total, [1]),
+                                       ("K - 1", strides_p, k_total - 1, [0, 1, 2])):
+        got = K.sojourn_enum(sizes_p, probs_p, strides, radix_p, count)
+        plain = K.sojourn_enum_torch(sizes_p, probs_p, strides, radix_p, count)
+        for p in range(3):
+            for g, pl, gd in zip(got, plain, good):
+                want_nan = p in bad
+                require(bool(torch.isnan(g[p])) == want_nan == bool(torch.isnan(pl[p])) and
+                        (want_nan or bool(g[p] == gd[p])),
+                        f"sojourn_enum N=10 mixed radices, {label}: order {p} gives {float(g[p])} "
+                        f"on the card, {float(pl[p])} in the plain version")
+        log(f"[kernel vs plain] sojourn_enum N=10 mixed radices P=3, {label}: NaN for orders "
+            f"{bad} on both, the others unchanged")
 
     # explicit outcome tables: an enumerated one and a sampled one
     jobs = generate_workload(np.random.default_rng(16), 16)
@@ -1070,9 +1091,9 @@ def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
     r["max_state_rel_l2"] = max(r["max_state_rel_l2"], err_st)
     log(f"[kernel vs plain] ssd_fwd (B, H, G, S, N, P, chunk)={shape}: y rel L2 {err_y:.3e}, "
         f"state rel L2 {err_st:.3e}")
-    require(err_y <= SSD_REL_L2, f"ssd_fwd {shape}: y rel L2 {err_y:.3e} > {SSD_REL_L2}")
-    require(err_st <= SSD_STATE_REL,
-            f"ssd_fwd {shape}: state rel L2 {err_st:.3e} > {SSD_STATE_REL}")
+    require(err_y <= SK.SSD_REL_L2, f"ssd_fwd {shape}: y rel L2 {err_y:.3e} > {SK.SSD_REL_L2}")
+    require(err_st <= SK.SSD_STATE_REL,
+            f"ssd_fwd {shape}: state rel L2 {err_st:.3e} > {SK.SSD_STATE_REL}")
     if time_it and "phase1_ms" not in r:
         r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
         log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")

@@ -100,8 +100,9 @@ template <int L>
 __global__ void __launch_bounds__(kThreads, 2) enum_kernel(
     const double* __restrict__ sizes_p,  // (P, N, M) permuted cumulative sizes
     const double* __restrict__ probs_p,  // (P, N, M) permuted stop probabilities
+    const int* __restrict__ strides_p,   // (P, N) permuted mixed-radix strides (checked)
     const int* __restrict__ radix_p,     // (P, N) permuted stage counts
-    int n, int m, int orders_on_x,
+    int n, int m, long long k_total, int orders_on_x,
     double* __restrict__ partials) {     // (P, nblk, 2)
   extern __shared__ double smem[];
   __shared__ uint32_t s_prefixes;
@@ -118,6 +119,30 @@ __global__ void __launch_bounds__(kThreads, 2) enum_kernel(
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) s_radix[i] = radix_p[(size_t)g.p * n + i];
   __syncthreads();
+  // The caller's strides must be the mixed-radix strides of this order's
+  // radix in some job order, and k_total its product (as the plain version
+  // checks): sorted by stride (a radix of 1 first among equal ones), each
+  // stride is the product of the radices sorted before it.  An order for
+  // which this fails gives NaN.  Products stop past any valid count.
+  constexpr long long kCap = 1ll << 40;
+  bool bad = false;
+  if (threadIdx.x < n) {
+    const int i = threadIdx.x;
+    const int* st = strides_p + (size_t)g.p * n;
+    const long long key = 2ll * st[i] + (s_radix[i] != 1);
+    long long before = 1;
+    for (int j = 0; j < n; ++j) {
+      const long long kj = 2ll * st[j] + (s_radix[j] != 1);
+      if (kj < key || (kj == key && j < i)) before = min(before * s_radix[j], kCap);
+    }
+    bad = before != st[i];
+  }
+  if (threadIdx.x == 0) {
+    long long all = 1;
+    for (int j = 0; j < n; ++j) all = min(all * s_radix[j], kCap);
+    bad |= all != k_total;
+  }
+  const bool mismatch = __syncthreads_or(bad);
   const int np = n - L;  // prefix positions
   if (threadIdx.x == 0) {  // mixed-radix strides of the prefix, last position fastest
     uint32_t stride = 1;
@@ -129,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 2) enum_kernel(
   }
   __syncthreads();
 
-  const uint32_t prefixes = s_prefixes;
+  const uint32_t prefixes = mismatch ? 0u : s_prefixes;
   const double dn = (double)n;
   double acc_succ = 0.0, acc_all = 0.0;
   const uint32_t step = (uint32_t)g.nblk * blockDim.x;
@@ -148,18 +173,19 @@ __global__ void __launch_bounds__(kThreads, 2) enum_kernel(
                      acc_all);
     }
   }
+  if (mismatch) acc_succ = acc_all = nan("");
   write_partial(partials, g, acc_succ, acc_all);
 }
 
 template <int L>
-int launch_enum(const double* sizes_p, const double* probs_p, const int* radix_p,
-                int n_orders, int n, int m, int nblk, double* partials, double* out,
-                cudaStream_t st) {
+int launch_enum(const double* sizes_p, const double* probs_p, const int* strides_p,
+                const int* radix_p, int n_orders, int n, int m, long long k_total, int nblk,
+                double* partials, double* out, cudaStream_t st) {
   int orders_on_x;
   const dim3 grid = make_grid(n_orders, nblk, &orders_on_x);
   const size_t smem = 2 * (size_t)n * m * sizeof(double) + 2 * (size_t)n * sizeof(int);
-  enum_kernel<L><<<grid, kThreads, smem, st>>>(sizes_p, probs_p, radix_p, n, m, orders_on_x,
-                                               partials);
+  enum_kernel<L><<<grid, kThreads, smem, st>>>(sizes_p, probs_p, strides_p, radix_p, n, m,
+                                               k_total, orders_on_x, partials);
   return finish_launch(partials, nblk, n_orders, out, st);
 }
 
@@ -312,16 +338,19 @@ __global__ void __launch_bounds__(kThreads) outcomes_kernel(
 
 // Exact Eqs. (7)-(9) for P static orders over all their combinations, the
 // last `suffix` service positions walked by each thread (0..kMaxSuffix,
-// at most n).  out (2, P): E[sojourn | successful], E[sojourn | all].
+// at most n).  out (2, P): E[sojourn | successful], E[sojourn | all]; NaN
+// for an order whose strides_p are not its radix_p's mixed-radix strides in
+// some job order or whose radix_p's product is not k_total.
 extern "C" int sojourn_enum_launch(const double* sizes_p, const double* probs_p,
-                                   const int* radix_p, int n_orders, int n, int m,
-                                   int suffix, int nblk, double* partials, double* out,
-                                   void* stream) {
+                                   const int* strides_p, const int* radix_p, int n_orders,
+                                   int n, int m, long long k_total, int suffix, int nblk,
+                                   double* partials, double* out, void* stream) {
   using namespace sojourn;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SOJOURN_ENUM_CASE(L) \
   case L:                    \
-    return launch_enum<L>(sizes_p, probs_p, radix_p, n_orders, n, m, nblk, partials, out, st);
+    return launch_enum<L>(sizes_p, probs_p, strides_p, radix_p, n_orders, n, m, k_total, nblk, \
+                          partials, out, st);
   static_assert(kMaxSuffix == 8, "the cases below instantiate suffixes 0 to 8");
   if (suffix > n) return (int)cudaErrorInvalidValue;
   switch (suffix) {

@@ -16,9 +16,10 @@ index range as the ``lax.scan`` paths of the JAX package do.
 The enumeration kernel walks each order's combinations in service order:
 a thread decodes one prefix (the first N - L positions) and walks the
 last L positions as an odometer from the prefix's state
-(:func:`suffix_length` picks L).  Its plain version computes every
-combination's value in the same order of operations (:func:`_enum_terms`),
-so the two differ only in the order of the sum over combinations.
+(:func:`suffix_length` picks L).  It computes each combination's weight
+product and completion times position by position in service order; its
+plain version does the same sums with ``prod`` and ``cumsum`` over a tile
+of combinations, so the two agree to rounding (1e-9 relative is the bar).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "sojourn_enum_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "sojourn_enum_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P, _P, _P],
     "sojourn_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _P, _P, _P],
     "sojourn_outcomes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
 }
@@ -196,24 +197,19 @@ def suffix_length(n: int, n_orders: int, k_total: int) -> int:
     return 0
 
 
-def _enum_terms(sizes_p, probs_p, s, radix):
-    """Each combination's ``(w, tot, tsum, cnt)`` (T, P) from its stop stages
-    ``s`` (T, P, N) in service order, as the kernel computes them: the
-    weight product and the completion times and their sums added position
-    by position."""
-    d = _permuted_gather(sizes_p, s)
-    p = _permuted_gather(probs_p, s)
-    succ = s == radix - 1
-    w = torch.ones(s.shape[:2], dtype=torch.float64, device=s.device)
-    t, tsum, tot = torch.zeros_like(w), torch.zeros_like(w), torch.zeros_like(w)
-    cnt = torch.zeros(s.shape[:2], dtype=torch.int64, device=s.device)
-    for pos in range(s.shape[2]):
-        w = w * p[..., pos]  # Eq. (8)
-        t = t + d[..., pos]  # completion time of the pos-th served job
-        tsum = tsum + t
-        tot = torch.where(succ[..., pos], tot + t, tot)
-        cnt = cnt + succ[..., pos].to(torch.int64)
-    return w, tot, tsum, cnt
+def _radix_mismatch(strides_p, radix_p, k_total: int) -> torch.Tensor:
+    """(P,) bool: the orders whose ``strides_p`` are not the mixed-radix
+    strides of their ``radix_p`` in any job order, or whose combinations do
+    not number ``k_total``.  Sorted by stride (a stage count of 1 first among
+    equal ones), valid strides run 1, M, M M', ...: each is the product of
+    the stage counts sorted before it."""
+    radix = radix_p.to(torch.int64)
+    strides = strides_p.to(torch.int64)
+    order = torch.sort(2 * strides + (radix != 1), dim=1, stable=True).indices
+    r = torch.gather(radix, 1, order).to(torch.float64)  # exact to 2^53
+    before = torch.cumprod(torch.cat([torch.ones_like(r[:, :1]), r[:, :-1]], dim=1), dim=1)
+    wrong = (before != torch.gather(strides, 1, order).to(torch.float64)).any(dim=1)
+    return wrong | (r.prod(dim=1) != k_total)
 
 
 def sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total: int):
@@ -228,11 +224,10 @@ def sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total: int):
     for lo in range(0, k_total, tile):
         k = torch.arange(lo, min(lo + tile, k_total), device=dev)
         s = (k[:, None, None] // strides) % radix  # (T, P, N) decode
-        w, tot, tsum, cnt = _enum_terms(sizes_p, probs_p, s, radix)
-        mean = torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)  # Eq. (7)
-        e_succ += (w * mean).sum(dim=0)  # Eq. (9)
-        e_all += (w * (tsum / n)).sum(dim=0)
-    return e_succ, e_all
+        w = _permuted_gather(probs_p, s).prod(dim=2)  # Eq. (8)
+        _accumulate(_permuted_gather(sizes_p, s), s == radix - 1, w, e_succ, e_all)
+    bad = _radix_mismatch(strides_p, radix_p, k_total)
+    return e_succ.masked_fill(bad, float("nan")), e_all.masked_fill(bad, float("nan"))
 
 
 def sojourn_enum(
@@ -245,9 +240,10 @@ def sojourn_enum(
     """Exact (E[sojourn successful], E[sojourn all]) per order, fused.
 
     The kernel walks the last :func:`suffix_length` service positions of
-    each combination from its thread's prefix; ``strides_p`` is the plain
-    version's decode (the kernel enumerates in service order and needs
-    none)."""
+    each combination from its thread's prefix.  ``strides_p`` must be each
+    order's mixed-radix strides of ``radix_p`` in some job order (the
+    caller's, permuted) and ``k_total`` the product of its ``radix_p``: an
+    order for which either is not so gives NaN, on either device."""
     p_orders, n, m = sizes_p.shape
     dev = sizes_p.device
     check_tensor("sizes_p", sizes_p, torch.float64, (p_orders, n, m), dev)
@@ -261,7 +257,8 @@ def sojourn_enum(
     out = launch(
         "sojourn_static", _SIGNATURES, "sojourn_enum_launch", dev, p_orders,
         enum_prefixes(n, suffix, k_total),
-        (sizes_p.data_ptr(), probs_p.data_ptr(), radix_p.data_ptr(), p_orders, n, m, suffix),
+        (sizes_p.data_ptr(), probs_p.data_ptr(), strides_p.data_ptr(), radix_p.data_ptr(),
+         p_orders, n, m, k_total, suffix),
     )
     launches["sojourn_enum"] += 1
     return out

@@ -1,20 +1,23 @@
 """Check and time this tree's ``ssd_fwd`` kernel on the card, in turns with
-one built from another ``ssd_fwd.cu`` whose launcher takes no scratch (the
-kernel that walked the chunks of a (b, h) in order in one CTA):
+one built from another ``ssd_fwd.cu``: one whose launcher takes no scratch
+(the kernel that walked the chunks of a (b, h) in order in one CTA), or
+one whose launcher takes the increments and the decays (the kernel whose
+y CTAs replayed the recurrence over the earlier chunks):
 
     python -m repro_torch.kernels.ssd_scan.compare [OTHER/ssd_fwd.cu]
 
 Prints this source's ptxas lines (registers, spills, wgmma serialization).
 Holds this kernel against the plain version (y's and the final state's
-relative L2 error, to ``chip_smoke.py``'s SSD_REL_L2 and SSD_STATE_REL)
-at the three phase-1 shapes of ``chip_smoke.py`` and at the Mamba2-1.3B
-prefill shape (B=4, H=64, G=1, S=2048, N=128, P=64, chunk 256), with a
+relative L2 error, to ``kernel.SSD_REL_L2`` and ``kernel.SSD_STATE_REL``)
+at the three phase-1 shapes of ``chip_smoke.py``, at the Mamba2-1.3B
+prefill shape (B=4, H=64, G=1, S=2048, N=128, P=64, chunk 256) and at a
+long prompt of that model's widths (B=1, S=32768: 128 chunks), with a
 second call bitwise equal to the first, and against the other kernel
-there.  Times both at the prefill shape and at phase 1's first shape in
-turns (this, other, other, this; the median of calls timed one by one
-behind a sleep on the card), and splits one call of this kernel at the
-prefill shape between its two launches under ``torch.profiler``.  Exits 1
-if a check fails.  Needs a CUDA card
+there.  Times both at phase 1's first shape, the prefill shape and the
+long prompt in turns (this, other, other, this; the median of calls timed
+one by one behind a sleep on the card), and splits one call of this
+kernel at the last two between its three launches under
+``torch.profiler``.  Exits 1 if a check fails.  Needs a CUDA card
 and ``nvcc``; the other library is built beside this tree's, in
 ``kernels/_build/``.
 """
@@ -32,12 +35,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import kernel as SK
 
-SSD_REL_L2 = 1e-2
-SSD_STATE_REL = 1e-3
 SLEEP_CYCLES = 100_000_000
-#: (B, H, G, S, N, P, chunk): chip_smoke.py's phase-1 shapes, then the prefill's.
+#: (B, H, G, S, N, P, chunk): chip_smoke.py's phase-1 shapes, the prefill's
+#: and a long prompt's.
 SHAPES = ((2, 8, 2, 1024, 128, 64, 256), (1, 4, 1, 300, 64, 64, 100), (1, 6, 3, 96, 16, 24, 8),
-          (4, 64, 1, 2048, 128, 64, 256))
+          (4, 64, 1, 2048, 128, 64, 256), (1, 64, 1, 32768, 128, 64, 256))
+#: Shapes timed, the first of them not split by the profiler.
+TIMED = (SHAPES[0], SHAPES[3], SHAPES[4])
 
 
 def inputs(b, h, g, s, n, p, seed=0):
@@ -94,16 +98,24 @@ def other_kernel(src: str):
     if proc.returncode:
         raise RuntimeError(proc.stdout + proc.stderr)
     lib = ctypes.CDLL(str(lib_path))
-    lib.ssd_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    text = Path(src).read_text()
+    scratch = [name for name in ("delta", "decay", "states") if f"float* {name}," in text]
+    lib.ssd_fwd_launch.argtypes = ([ctypes.c_void_p] * (7 + len(scratch)) + [ctypes.c_int] * 7
+                                   + [ctypes.c_void_p])
 
     def run(x, dt, da, bm, cm, *, chunk):
         b, h, s, p = x.shape
         g, n = bm.shape[1], bm.shape[-1]
         y = torch.empty_like(x)
         state = torch.empty((b, h, n, p), dtype=torch.float32, device="cuda")
+        c = min(chunk, s)
+        shapes = {"delta": (b * h, s // c, 64, 64 if n <= 64 else 128), "decay": (b * h, s // c)}
+        shapes["states"] = shapes["delta"]  # as kernel.ssd_fwd allocates them
+        bufs = [torch.empty(shapes[name], dtype=torch.float32, device="cuda") for name in scratch]
+        extra = tuple(t.data_ptr() for t in bufs)
         code = lib.ssd_fwd_launch(x.data_ptr(), dt.data_ptr(), da.data_ptr(), bm.data_ptr(),
-                                  cm.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, g, s, n,
-                                  p, min(chunk, s), torch.cuda.current_stream().cuda_stream)
+                                  cm.data_ptr(), y.data_ptr(), state.data_ptr(), *extra, b, h,
+                                  g, s, n, p, c, torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"the other ssd_fwd kernel returned {code}")
         return y, state
@@ -126,15 +138,17 @@ def main(other_src: str | None) -> int:
         same = bool(torch.equal(y, y2)) and bool(torch.equal(st, st2))
         y_p, st_p = SK.ssd_fwd_torch(*args, chunk=chunk)
         err_y, err_st = rel_l2(y, y_p), rel_l2(st, st_p)
-        ok &= same and err_y <= SSD_REL_L2 and err_st <= SSD_STATE_REL
+        ok &= same and err_y <= SK.SSD_REL_L2 and err_st <= SK.SSD_STATE_REL
         line = (f"ssd_fwd (B, H, G, S, N, P, chunk)={shape}: second call equal {same}; against "
                 f"the plain version y rel L2 {err_y:.3e}, state {err_st:.3e}")
         if other:
             y_o, st_o = other(*args, chunk=chunk)
-            line += (f"; against the other kernel y {rel_l2(y, y_o):.3e}, state "
+            equal = bool(torch.equal(y, y_o)) and bool(torch.equal(st, st_o))
+            line += (f"; against the other kernel (bitwise equal {equal}) y "
+                     f"{rel_l2(y, y_o):.3e}, state "
                      f"{rel_l2(st, st_o):.3e}, its own against the plain version y "
                      f"{rel_l2(y_o, y_p):.3e}, state {rel_l2(st_o, st_p):.3e}")
-        if shape in (SHAPES[0], SHAPES[-1]):
+        if shape in TIMED:
             mine = lambda: SK.ssd_fwd(*args, chunk=chunk)  # noqa: E731
             fns = [mine]
             if other:
@@ -145,8 +159,9 @@ def main(other_src: str | None) -> int:
             times = [median_ms(fn, 10) for fn in fns]
             line += ("; ms this, other, other, this: " if other else "; ms: ") + \
                 ", ".join(f"{t:.4f}" for t in times)
-            line += "; one call's launches (torch.profiler): " + ", ".join(
-                f"{name} {ms:.4f} ms" for name, ms in launch_ms(mine))
+            if shape != TIMED[0]:
+                line += "; one call's launches (torch.profiler): " + ", ".join(
+                    f"{name} {ms:.4f} ms" for name, ms in launch_ms(mine))
         print(line, flush=True)
         del args, y, y2, y_p, st, st2, st_p
         torch.cuda.empty_cache()

@@ -2,7 +2,8 @@
 // the chunks in parallel.
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan/kernel.py:
-//   ssd_fwd (_ssd_kernel) -> ssd_fwd_launch (ssd_delta_kernel, then ssd_y_kernel)
+//   ssd_fwd (_ssd_kernel) -> ssd_fwd_launch (ssd_delta_kernel, ssd_state_kernel,
+//                            then ssd_y_kernel)
 // Layout as the Pallas kernel's: x (B, H, S, P) bf16; dt, dA (B, H, S) f32
 // (dA = dt * A[h] <= 0); Bm, Cm (B, G, S, N) bf16, head h reading group
 // h / (H / G).  Outputs y (B, H, S, P) bf16 (without the D * x skip, which
@@ -25,22 +26,27 @@
 //
 // The recurrence over chunks, state_{c+1} = exp(cum_last_c) * state_c +
 // Delta_c with Delta_c = Bᵀ·(x * w) of chunk c alone, is split so that every
-// chunk runs at once (B * H * S / chunk CTAs, 2,048 at the serving shape):
+// chunk's products run at once (B * H * S / chunk CTAs, 2,048 at the
+// serving shape):
 //   1. ssd_delta_kernel, a CTA a (chunk, h, b): cum = cumsum(dA) over the
 //      chunk (a warp scan), decay_c = exp(cum_last) and
 //      Delta_cᵀ (P x N) = (x * w)ᵀ · B with w_s = exp(cum_last - cum_s) dt_s,
 //      written to device scratch in f32;
-//   2. ssd_y_kernel, a CTA a (chunk, h, b): state_c by the recurrence over
-//      chunks 0 .. c - 1 of its (b, h), read back from that scratch, with
-//      the formula and the order of the two terms of the sequential scan
-//      (fmaf(decay, state, Delta)), so every CTA of a (b, h) computes the
-//      same bits for the same chunk; then for each 64-row t-block i of
-//      the chunk, y_i = exp(cum_t) * (C_i · state_c) + sum over s-blocks
-//      j <= i of (L ∘ dt ∘ (C_i · B_jᵀ)) · x_j, where L[t, s] =
-//      exp(cum_t - cum_s) for t >= s and is taken by a select (above the
-//      diagonal the exponent is positive and could overflow, and inf * 0
-//      would be NaN).  The CTA of the last chunk also writes the final
-//      state, fmaf(decay, state, Delta) once more.
+//   2. ssd_state_kernel, a thread a float4 of the state of a (b, h): walks
+//      the chunks in order with the formula and the order of the two terms
+//      of the sequential scan (fmaf(decay, state, Delta)) and writes
+//      state_c, the state entering chunk c, to a second scratch buffer,
+//      then the final state.  The recurrence is elementwise, so its
+//      B * H * N * P / 4 threads read each increment and write each state
+//      once: linear in S, at the rate of a copy.  (Written over the
+//      increments instead, each line written just after it is read, the
+//      same pass ran at well under half that rate.);
+//   3. ssd_y_kernel, a CTA a (chunk, h, b): reads state_c, then for each
+//      64-row t-block i of the chunk, y_i = exp(cum_t) * (C_i · state_c) +
+//      sum over s-blocks j <= i of (L ∘ dt ∘ (C_i · B_jᵀ)) · x_j, where
+//      L[t, s] = exp(cum_t - cum_s) for t >= s and is taken by a select
+//      (above the diagonal the exponent is positive and could overflow, and
+//      inf * 0 would be NaN).
 // No sum is split across CTAs and nothing is added atomically, so two
 // calls give the same bits.
 //
@@ -290,7 +296,55 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_delta_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// 2. state_c, then y of the chunk, a CTA a (chunk, h, b)
+// 2. state_c, chunk by chunk, a thread a float4 of a (b, h)
+// ---------------------------------------------------------------------------
+
+constexpr int kStateThreads = 256;
+
+template <int NP>
+__global__ void __launch_bounds__(kStateThreads) ssd_state_kernel(
+    const float* __restrict__ delta,  // (B*H, S / chunk, kP, NP): Delta_cᵀ
+    const float* __restrict__ decay,  // (B*H, S / chunk)
+    float* __restrict__ states,       // (B*H, S / chunk, kP, NP): state_cᵀ
+    float* __restrict__ final_state,  // (B, H, N, P)
+    int n_chunks, int n, int p) {
+  constexpr int kStride = kP * NP / 4;           // float4s of one chunk's state
+  constexpr int kRows = 4 * kStateThreads / NP;  // head-dim rows of a block
+  __shared__ float s_fin[kRows * (NP + 1)];      // the block's final state, padded
+  const int e4 = blockIdx.x * kStateThreads + threadIdx.x;  // float4 of the state
+  const int bh = blockIdx.y;
+  const size_t off = (size_t)bh * n_chunks * kStride + e4;
+  const float4* d4 = reinterpret_cast<const float4*>(delta) + off;
+  float4* s4 = reinterpret_cast<float4*>(states) + off;
+  const float* g = decay + (size_t)bh * n_chunks;
+  float4 st = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < n_chunks; ++c) {
+    const float4 d = __ldg(d4 + (size_t)c * kStride);
+    s4[(size_t)c * kStride] = st;
+    const float gc = g[c];
+    st = make_float4(fmaf(gc, st.x, d.x), fmaf(gc, st.y, d.y), fmaf(gc, st.z, d.z),
+                     fmaf(gc, st.w, d.w));
+  }
+  // the final state (N, P) is the transpose: staged in shared memory, so
+  // that consecutive threads write consecutive head-dim rows
+  const int local = 4 * threadIdx.x;
+  float* f = s_fin + (local / NP) * (NP + 1) + local % NP;
+  f[0] = st.x;
+  f[1] = st.y;
+  f[2] = st.z;
+  f[3] = st.w;
+  __syncthreads();
+  const int row0 = blockIdx.x * kRows;
+  float* fs = final_state + (size_t)bh * n * p;
+  for (int i = threadIdx.x; i < kRows * NP; i += kStateThreads) {
+    const int sn = i / kRows;  // state index
+    const int r = i % kRows;
+    if (sn < n && row0 + r < p) fs[(size_t)sn * p + row0 + r] = s_fin[r * (NP + 1) + sn];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. y of the chunk from state_c, a CTA a (chunk, h, b)
 // ---------------------------------------------------------------------------
 
 template <int NP>
@@ -434,11 +488,9 @@ __global__ void __launch_bounds__(kYThreads, 1) ssd_y_kernel(
     const __grid_constant__ CUtensorMap tm_c,  // (N, chunk, S / chunk, B*G)
     const float* __restrict__ dt,              // (B, H, S)
     const float* __restrict__ da,              // (B, H, S)
-    const float* __restrict__ delta,           // (B*H, S / chunk, kP, NP)
-    const float* __restrict__ decay,           // (B*H, S / chunk)
+    const float* __restrict__ state,           // (B*H, S / chunk, kP, NP): state_cᵀ
     __nv_bfloat16* __restrict__ y,             // (B, H, S, P)
-    float* __restrict__ final_state,           // (B, H, N, P)
-    int n_heads, int n_groups, int seqlen, int n, int p, int chunk) {
+    int n_heads, int n_groups, int seqlen, int p, int chunk) {
   using L = YSmem<NP>;
   constexpr int kVecs = kP * NP / 4 / kYThreads;  // float4 of the state a thread
   extern __shared__ uint8_t smem_raw[];
@@ -471,53 +523,22 @@ __global__ void __launch_bounds__(kYThreads, 1) ssd_y_kernel(
   chunk_scan(da + row0, dt + row0, chunk, s_cum, s_dt, s_warp);
   if (tid < kMaxChunk) s_ecum[tid] = expf(s_cum[tid]);
 
-  // state_c = the recurrence over chunks 0 .. c - 1 (while the loads land)
-  const float* delta_bh = delta + (size_t)bh * n_chunks * kP * NP;
-  const float* decay_bh = decay + (size_t)bh * n_chunks;
-  float4 st[kVecs];
-#pragma unroll
-  for (int v = 0; v < kVecs; ++v) st[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int cc = 0; cc < c; ++cc) {
-    const float g = decay_bh[cc];
-    const float4* d4 = reinterpret_cast<const float4*>(delta_bh + (size_t)cc * kP * NP);
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      const float4 d = d4[tid + kYThreads * v];
-      st[v] = make_float4(fmaf(g, st[v].x, d.x), fmaf(g, st[v].y, d.y), fmaf(g, st[v].z, d.z),
-                          fmaf(g, st[v].w, d.w));
-    }
-  }
-  // state_cᵀ (P rows, N columns) as hi and lo, the K-major B operand of C·state
+  // state_cᵀ (P rows, N columns) as hi and lo, the K-major B operand of
+  // C·state (while the loads land)
+  const float4* s4 =
+      reinterpret_cast<const float4*>(state + ((size_t)bh * n_chunks + c) * kP * NP);
 #pragma unroll
   for (int v = 0; v < kVecs; ++v) {
+    const float4 st = s4[tid + kYThreads * v];
     const int e = 4 * (tid + kYThreads * v);
     const int row = e / NP;  // head-dim index
     const int sn = e % NP;   // state index: 4 of one 16-byte chunk
     const uint32_t off = (sn / 64) * kStatePanel + swizzled(row, sn % 64);
     uint2 hi, lo;
-    split_bf16(st[v].x, st[v].y, hi.x, lo.x);
-    split_bf16(st[v].z, st[v].w, hi.y, lo.y);
+    split_bf16(st.x, st.y, hi.x, lo.x);
+    split_bf16(st.z, st.w, hi.y, lo.y);
     *reinterpret_cast<uint2*>(gbase + L::kHi + off) = hi;
     *reinterpret_cast<uint2*>(gbase + L::kLo + off) = lo;
-  }
-  if (c == n_chunks - 1) {  // the final state: one more step of the recurrence
-    const float g = decay_bh[c];
-    const float4* d4 = reinterpret_cast<const float4*>(delta_bh + (size_t)c * kP * NP);
-    float* fs = final_state + (size_t)bh * n * p;
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      const int e = 4 * (tid + kYThreads * v);
-      const int row = e / NP;
-      const int sn = e % NP;
-      const float4 d = d4[tid + kYThreads * v];
-      const float f[4] = {fmaf(g, st[v].x, d.x), fmaf(g, st[v].y, d.y), fmaf(g, st[v].z, d.z),
-                          fmaf(g, st[v].w, d.w)};
-      if (row < p) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (sn + k < n) fs[(size_t)(sn + k) * p + row] = f[k];
-      }
-    }
   }
   fence_async_shared();
   __syncthreads();
@@ -557,8 +578,8 @@ static bool make_chunk_map(CUtensorMap* map, const void* ptr, int d, int chunk, 
 
 template <int NP>
 int launch(const void* x, const float* dt, const float* da, const void* bm, const void* cm,
-           void* y, float* final_state, float* delta, float* decay, int batch, int n_heads,
-           int n_groups, int seqlen, int n, int p, int chunk, cudaStream_t stream) {
+           void* y, float* final_state, float* delta, float* decay, float* states, int batch,
+           int n_heads, int n_groups, int seqlen, int n, int p, int chunk, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   const int n_chunks = seqlen / chunk;
   CUtensorMap tm_x, tm_b, tm_c;
@@ -577,9 +598,14 @@ int launch(const void* x, const float* dt, const float* da, const void* bm, cons
       tm_x, tm_b, dt, da, delta, decay, n_heads, n_groups, seqlen, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  static_assert(kP * NP / 4 % kStateThreads == 0, "whole blocks of the state's float4s");
+  ssd_state_kernel<NP><<<dim3(kP * NP / 4 / kStateThreads, batch * n_heads), kStateThreads, 0,
+                         stream>>>(delta, decay, states, final_state, n_chunks, n, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   ssd_y_kernel<NP><<<grid, kYThreads, YSmem<NP>::kBytes, stream>>>(
-      tm_x, tm_b, tm_c, dt, da, delta, decay, static_cast<__nv_bfloat16*>(y), final_state,
-      n_heads, n_groups, seqlen, n, p, chunk);
+      tm_x, tm_b, tm_c, dt, da, states, static_cast<__nv_bfloat16*>(y), n_heads, n_groups,
+      seqlen, p, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -588,24 +614,25 @@ int launch(const void* x, const float* dt, const float* da, const void* bm, cons
 // y, final_state = ssd_fwd(x, dt, dA, Bm, Cm) for the layout above; n and p
 // multiples of 8 with n <= 128 and p <= 64, chunk in [1, 256] dividing
 // seqlen, n_heads a multiple of n_groups; x, Bm and Cm 16-byte aligned.
-// delta ((B*H, S / chunk, 64, 64 or 128) f32, 64 for n <= 64) and decay
-// ((B*H, S / chunk) f32) are scratch that the caller allocates.  Two
+// delta and states ((B*H, S / chunk, 64, 64 or 128) f32, 64 for n <= 64) and
+// decay ((B*H, S / chunk) f32) are scratch that the caller allocates.  Three
 // launches.  Returns a cudaError_t as int (cudaErrorInvalidValue for shapes
 // it does not take, cudaErrorNotSupported without cuTensorMapEncodeTiled).
 // No synchronisation.
 extern "C" int ssd_fwd_launch(const void* x, const float* dt, const float* da, const void* bm,
                               const void* cm, void* y, float* final_state, float* delta,
-                              float* decay, int batch, int n_heads, int n_groups, int seqlen,
-                              int n, int p, int chunk, void* stream) {
+                              float* decay, float* states, int batch, int n_heads,
+                              int n_groups, int seqlen, int n, int p, int chunk,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n % 8 || p % 8 || n > 128 || p > ssd::kP || chunk < 1 || chunk > ssd::kMaxChunk ||
       seqlen % chunk || n_groups < 1 || n_heads % n_groups)
     return (int)cudaErrorInvalidValue;
   if (n <= 64)
-    return ssd::launch<64>(x, dt, da, bm, cm, y, final_state, delta, decay, batch, n_heads,
-                           n_groups, seqlen, n, p, chunk, st);
-  return ssd::launch<128>(x, dt, da, bm, cm, y, final_state, delta, decay, batch, n_heads,
-                          n_groups, seqlen, n, p, chunk, st);
+    return ssd::launch<64>(x, dt, da, bm, cm, y, final_state, delta, decay, states, batch,
+                           n_heads, n_groups, seqlen, n, p, chunk, st);
+  return ssd::launch<128>(x, dt, da, bm, cm, y, final_state, delta, decay, states, batch,
+                          n_heads, n_groups, seqlen, n, p, chunk, st);
 }
 
 extern "C" const char* kernel_error_string(int code) {

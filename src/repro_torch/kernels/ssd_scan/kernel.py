@@ -14,9 +14,11 @@ Cm; N <= 128 and P <= 64, multiples of 8; a chunk of at most 256 steps)
 or raises; a CPU tensor runs the plain PyTorch version,
 :func:`ssd_fwd_torch`, which is the Pallas kernel's arithmetic chunk by
 chunk, in float32.  ``launches`` counts calls that launch the kernel, and
-nothing else: each such call makes two CUDA launches, the chunks' state
-increments and then y (the source's note), with the increments in device
-scratch that the wrapper allocates.
+nothing else: each such call makes three CUDA launches (the source's
+note): the chunks' state increments, into device scratch that the
+wrapper allocates; the pass over the chunks in order, which writes each
+chunk's entering state into a second such buffer, and the final state;
+then y.
 """
 
 from __future__ import annotations
@@ -28,16 +30,22 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import chunked_scan
 
-__all__ = ["MAX_CHUNK", "launches", "ssd_fwd", "ssd_fwd_torch"]
+__all__ = ["MAX_CHUNK", "SSD_REL_L2", "SSD_STATE_REL", "launches", "ssd_fwd", "ssd_fwd_torch"]
 
 #: Longest chunk the kernel takes (its shared-memory tiles are sized for it).
 MAX_CHUNK = 256
+#: The kernel against its plain version (relative L2 errors), as
+#: ``chip_smoke.py`` and ``compare.py`` hold it: y is bf16 on both sides
+#: (one ulp is 2**-8 relative) after float32 sums in another order, and C·Bᵀ
+#: sums bf16 products on the tensor cores; the state stays float32 on both.
+SSD_REL_L2 = 1e-2
+SSD_STATE_REL = 1e-3
 #: Kernel launches since the last reset (set to 0 to reset).
 launches = {"ssd_fwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"ssd_fwd_launch": [_P] * 9 + [_I] * 7 + [_P]}
+_SIGNATURES = {"ssd_fwd_launch": [_P] * 10 + [_I] * 7 + [_P]}
 
 
 def _check(x, dt, da, Bm, Cm, chunk: int) -> int:
@@ -100,14 +108,15 @@ def ssd_fwd(
     with torch.cuda.device(dev):
         y = torch.empty_like(x)
         state = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
-        # scratch: each chunk's state increment, transposed and padded to
-        # 64 x (64 or 128), and each chunk's decay
-        delta = torch.empty((b * h, s // c, 64, 64 if n <= 64 else 128), dtype=torch.float32,
-                            device=dev)
+        # scratch: each chunk's state increment and the state entering it,
+        # transposed and padded to 64 x (64 or 128), and each chunk's decay
+        delta, states = (torch.empty((b * h, s // c, 64, 64 if n <= 64 else 128),
+                                     dtype=torch.float32, device=dev) for _ in range(2))
         decay = torch.empty((b * h, s // c), dtype=torch.float32, device=dev)
         code = lib.ssd_fwd_launch(
             x.data_ptr(), dt.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), state.data_ptr(), delta.data_ptr(), decay.data_ptr(),
+            states.data_ptr(),
             b, h, g, s, n, p, c, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "ssd_fwd_launch")

@@ -7,10 +7,14 @@ CUDA kernel does not run here, so:
 
 * ``_walk`` is that walk in plain Python, thread by thread, for any L and
   mixed radices.  It visits every combination once; each combination's
-  ``(w, tot, tsum, cnt)`` equals, bitwise, what the plain version
-  ``sojourn_enum_torch`` computes for it (``kernel._enum_terms``); and
+  ``(w, tot, tsum, cnt)`` equals, bitwise, the position-by-position model
+  ``_terms`` (the kernel's order of operations, combination by index);
   its totals, summed in the kernel's order, are within 1e-9 of the
-  reference's Pallas ``sojourn_enum`` in interpret mode;
+  reference's Pallas ``sojourn_enum`` in interpret mode; and the
+  vectorised plain version ``sojourn_enum_torch`` is within 1e-12 of the
+  model's totals;
+* the plain version's NaN for an order whose strides or ``k_total`` are
+  not its radix's, as the kernel answers;
 * the wrapper's rule for L (``kernel.suffix_length``) at N = 26, at the
   OPTIMAL search's N = 8, P = 512 batches and where the prefix is empty;
 * ``chip_smoke.static_flops``, the enumeration's bound, against a
@@ -68,6 +72,26 @@ def _inputs(stages, n_orders, seed):
 # ---------------------------------------------------------------------------
 # The kernel's walk in plain Python
 # ---------------------------------------------------------------------------
+
+
+def _terms(sizes_p, probs_p, s, radix):
+    """Each combination's ``(w, tot, tsum, cnt)`` (T, P) from its stop stages
+    ``s`` (T, P, N) in service order, in the kernel's order of operations:
+    the weight product and the completion times and their sums added
+    position by position."""
+    d = K._permuted_gather(sizes_p, s)
+    p = K._permuted_gather(probs_p, s)
+    succ = s == radix - 1
+    w = torch.ones(s.shape[:2], dtype=torch.float64)
+    t, tsum, tot = torch.zeros_like(w), torch.zeros_like(w), torch.zeros_like(w)
+    cnt = torch.zeros(s.shape[:2], dtype=torch.int64)
+    for pos in range(s.shape[2]):
+        w = w * p[..., pos]  # Eq. (8)
+        t = t + d[..., pos]  # completion time of the pos-th served job
+        tsum = tsum + t
+        tot = torch.where(succ[..., pos], tot + t, tot)
+        cnt = cnt + succ[..., pos].to(torch.int64)
+    return w, tot, tsum, cnt
 
 
 def _serve(state, p, size, success):
@@ -139,8 +163,12 @@ def test_walk_matches_plain_per_combination_and_reference(stages, n_orders, suff
     # the plain version's terms of every combination index, by its decode
     k = torch.arange(k_total)
     s = (k[:, None, None] // strides_p.to(torch.int64)[None]) % radix_p.to(torch.int64)[None]
-    terms = K._enum_terms(sizes_p, probs_p, s, radix_p.to(torch.int64)[None])
+    terms = _terms(sizes_p, probs_p, s, radix_p.to(torch.int64)[None])
+    w, tot, tsum, cnt = terms
+    model = ((w * torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)).sum(dim=0),
+             (w * (tsum / len(stages))).sum(dim=0))
     plain = K.sojourn_enum_torch(sizes_p, probs_p, strides_p, radix_p, k_total)
+    np.testing.assert_allclose(torch.stack(plain), torch.stack(model), rtol=1e-12, atol=0)
     with jax.enable_x64(True):
         ref = ref_kernel.sojourn_enum(*(np.asarray(a) for a in (sizes_p, probs_p, strides_p,
                                                                  radix_p)), k_total,
@@ -168,6 +196,29 @@ def test_walk_matches_plain_per_combination_and_reference(stages, n_orders, suff
             np.testing.assert_allclose([e_succ, e_all], [ref[0][p], ref[1][p]], rtol=RTOL, atol=0)
             np.testing.assert_allclose([e_succ, e_all], [plain[0][p], plain[1][p]], rtol=RTOL,
                                        atol=0)
+
+
+@pytest.mark.parametrize("fault", ["stride", "k_total"])
+def test_plain_gives_nan_where_strides_or_count_are_not_the_radix(fault):
+    """The kernel enumerates each order's own radix and checks the strides
+    and the count it is given; the plain version answers as it does: NaN
+    for that order, and the other orders unchanged."""
+    _, _, (sizes_p, probs_p, strides_p, radix_p, k_total) = _inputs([2, 3, 2, 2], 3, 7)
+    good = K.sojourn_enum(sizes_p, probs_p, strides_p, radix_p, k_total)
+    if fault == "stride":
+        strides_p = strides_p.clone()
+        strides_p[1, 0] += 1
+        bad_orders = [1]
+    else:
+        k_total -= 1
+        bad_orders = [0, 1, 2]
+    got = K.sojourn_enum(sizes_p, probs_p, strides_p, radix_p, k_total)
+    for p in range(3):
+        for g, want in zip(got, good):
+            if p in bad_orders:
+                assert torch.isnan(g[p])
+            else:
+                assert g[p] == want[p]
 
 
 # ---------------------------------------------------------------------------
@@ -219,18 +270,21 @@ def test_static_flops_counts_distinct_prefixes(stages):
     for order in orders:
         combos = list(product(*(range(stages[j]) for j in order)))  # in service order
         updates = sum(len({c[:q + 1] for c in combos}) for q in range(len(stages)))
-        want += 4.0 * updates + 6.0 * k_total
+        successes = sum(len({c[:q + 1] for c in combos if c[q] == stages[j] - 1})
+                        for q, j in enumerate(order))
+        want += 3.0 * updates + successes + 6.0 * k_total
     assert cs.static_flops(jobs, orders, k_total, mc=False) == want
     full = cs.static_flops_full_decode(jobs, len(orders), k_total)
     assert full > cs.static_flops(jobs, orders, k_total, mc=False) or k_total == 2
 
 
 def test_static_flops_at_phase_7():
-    """N = 26, M = 2: 4 (2^27 - 2) + 6 x 2^26, about 14 x 2^26, against the
-    full decode's (3 x 26 + 6) x 2^26 plus the success adds."""
+    """N = 26, M = 2: 3 (2^27 - 2) updates, 2^26 - 1 success adds and
+    6 x 2^26 for the tails, about 13 x 2^26, against the full decode's
+    (3 x 26 + 6) x 2^26 plus the success adds."""
     cs = _chip_smoke()
     jobs = generate_workload(np.random.default_rng(31), 26, 2)
     order = policies.rank_order(jobs)[None]
     got = cs.static_flops(jobs, order, 1 << 26, mc=False)
-    assert got == 4.0 * (2**27 - 2) + 6.0 * 2**26
+    assert got == 3.0 * (2**27 - 2) + (2**26 - 1) + 6.0 * 2**26
     assert cs.static_flops_full_decode(jobs, 1, 1 << 26) == (3 * 26 + 6) * 2**26 + 26 * 2**25
