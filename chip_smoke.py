@@ -26,7 +26,13 @@ Phases, each of which must pass:
    an empty prefix (P = 2^16), M = 2, 3 and 4 and mixed radices, each
    with a second call bitwise equal, NaN on both sides for an order whose
    strides or count are not its radix's, and timed at the OPTIMAL
-   search's batches, N=8 M=3 P=512),
+   search's batches, N=8 M=3 P=512; ``sojourn_mc`` at M = 3 and 4, on a
+   CDF with 0, 1 and multiples of 2^-32, at N = 1228 and 1229 (P5) and at
+   N = 8000, its tables read through L1; ``sojourn_outcomes`` at P = 1, 8,
+   9, 17 and 40, N = 1, 16, 21 and 32, M = 2 to 4, K below one tile and
+   ragged, a zero-weight row, N = 191 and 192 (P5) and N = 400 (its direct
+   kernel), and timed at N = 16, 21 and 32 (shared-memory banks); each with
+   a second call bitwise equal),
    ``flash_fwd`` in bf16 to the tolerances
    ``FLASH_O_ATOL`` / ``FLASH_LSE_ATOL``, ``flash_dkv`` and ``flash_dq``
    (causal, a sliding window, GQA groups 1, 2, 4 and 6, head dims 64, 112
@@ -55,8 +61,11 @@ Phases, each of which must pass:
    the dynamic kernel must give the static RANK order's value at N=26;
 4. drive the explicit-outcome path: ``enumerate_outcomes`` at N=21
    (K = 2**21) evaluated for RANK and SR, and ``sample_outcomes`` with
-   2**21 samples at N=27 over RANK plus 16 RANDOM orders; the table
-   values must equal the exact (table-free) ones to 1e-9;
+   2**21 samples at N=27 over RANK plus 16 RANDOM orders, at most one
+   ``sojourn_outcomes`` launch for each static call; the host wall split
+   into table builds, uploads and calls, and the N=27 call's kernel time
+   under ``torch.profiler``; the table values must equal the exact
+   (table-free) ones to 1e-9;
 5. serve four models with random weights through
    ``repro_torch.launch.serve``, each 4 prompts of 2048 tokens and 32 new
    tokens, each with a decode-against-prefill check and, under
@@ -114,7 +123,11 @@ Phases, each of which must pass:
    yardsticks, and reckon each kernel's bound: the work any kernel that
    meets the bars must do (``static_flops``, ``ssd_work``), with the
    counts of the earlier kernels' way of doing it beside the enumeration's
-   and the SSD scan's; the run fails if a kernel's time is below its
+   and the SSD scan's; the largest of three terms, float64 (or tensor)
+   operations, the ALU-only integer operations of the Threefry stream
+   (``threefry_alu_ops``, at the card's maximum SM clock) and bytes, each
+   printed; both Monte-Carlo kernels also at N=80 and ``sojourn_outcomes``
+   at phase 4's N=27 call; the run fails if a kernel's time is below its
    bound at any shape (a share over 100% means a wrong count).  Phase 1
    times each at its mid sizes as well.  Each time is the median of calls timed one by
    one behind a sleep on the card (``PREFILL_CYCLES``), so it measures
@@ -123,6 +136,9 @@ Phases, each of which must pass:
 Phases 3, 4, each serving run of 5 and the training run of 6 set every
 launch count to 0 just before they drive their path and read the counts
 just after: every kernel of the path must have launched.
+
+Each kernel's ``bound_by`` is ``operations`` or ``bytes``; ``bound_term``
+says which term won (``operations``, ``integer`` or ``bytes``).
 
 It prints the kernel report as one JSON line, the card's name and power
 limit from ``nvidia-smi``, and as its last line
@@ -229,6 +245,14 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
+#: Lanes of an SM's integer ALU pipe (the rotates and xors of Threefry run
+#: only there), and the H100's SMs.  The SM clock is the card's own maximum
+#: (max_sm_clock_hz), not a data-sheet constant.
+ALU_LANES_PER_SM, SM_COUNT = 64, 132
+#: Threefry-2x32 work a pair of job and sample needs for the .x word: 20
+#: adds, 19 rotates, 19 xors and 9 key injections (the last round's rotate
+#: and xor and the last x1 injection feed only .y), 38 of them ALU-only.
+THREEFRY_OPS, THREEFRY_ALU_OPS = 67, 38
 SOJOURN_SRC = "src/repro_torch/kernels/sojourn_eval/csrc/"
 REPLACES = {
     "sojourn_enum": "src/repro/kernels/sojourn_eval/kernel.py:162",
@@ -539,11 +563,52 @@ def ssd_bound_cuda_cores(work: dict) -> tuple[float, str]:
     return times[by], by
 
 
-def bound_ms(flops: float, in_bytes: int, out_bytes: int,
-             peak: float = FP64_FLOPS) -> tuple[float, str]:
-    t_ops = flops / peak * 1e3
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def threefry_alu_ops(n_jobs: int, n_samples: int) -> float:
+    """ALU-only operations of the Threefry stream a streamed evaluation
+    needs: one block for each pair of job and sample (x0 = sample, x1 =
+    original job id, the .x word), whatever the orders or policies (they
+    all see the same stream, so a kernel could share the blocks among
+    them, and none can shorten a block)."""
+    return float(THREEFRY_ALU_OPS) * n_jobs * n_samples
+
+
+_CLOCK: list[float] = []
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from ``nvidia-smi`` (read once)."""
+    if not _CLOCK:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True)
+        _CLOCK.append(float(out.stdout.split()[0]) * 1e6)
+    return _CLOCK[0]
+
+
+def bound_terms(flops: float, in_bytes: int, out_bytes: int, peak: float = FP64_FLOPS,
+                alu_ops: float = 0.0) -> dict[str, float]:
+    """Milliseconds of the three terms of a bound: ``operations`` (flops at
+    ``peak``), ``integer`` (ALU-only integer operations over 132 SMs x 64
+    lanes x the card's maximum SM clock) and ``bytes`` (each input read and
+    each output written once at the HBM rate)."""
+    terms = {"operations": flops / peak * 1e3,
+             "bytes": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3}
+    if alu_ops:
+        terms["integer"] = alu_ops / (SM_COUNT * ALU_LANES_PER_SM * max_sm_clock_hz()) * 1e3
+    return terms
+
+
+def bound_ms(flops: float, in_bytes: int, out_bytes: int, peak: float = FP64_FLOPS,
+             alu_ops: float = 0.0) -> tuple[float, str]:
+    """(the largest term of :func:`bound_terms`, its name)."""
+    terms = bound_terms(flops, in_bytes, out_bytes, peak, alu_ops)
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def contract_by(by: str) -> str:
+    """The kernel line's ``bound_by``: integer operations are operations."""
+    return "bytes" if by == "bytes" else "operations"
 
 
 def tensor_bytes(args) -> int:
@@ -616,7 +681,30 @@ def phase_kernels(dev, report) -> None:
     compare("sojourn_enum", "N=20 M=2 K=2^20 P=3", K.sojourn_enum,
             K.sojourn_enum_torch, static_args(jobs, orders, dev), time_it=True)
     compare("sojourn_mc", "N=20 M=2 S=2^20 P=3", K.sojourn_mc, K.sojourn_mc_torch,
-            static_args(jobs, orders, dev, (SEED, 1 << 20)), time_it=True)
+            static_args(jobs, orders, dev, (SEED, 1 << 20)), time_it=True, twice=True)
+    # the Monte-Carlo kernel's integer decode and tables: M = 3 and 4; a CDF
+    # that starts at 0, reaches 1 early and sits on multiples of 2^-32; N =
+    # 1228 and 1229 on both sides of the first kernel's shared-memory limit
+    # (P5); N = 8000, whose tables pass a block's shared memory (read
+    # through L1)
+    edge = [JobSpec(sizes=[1.0, 2.0, 4.0], probs=[0.0, 0.5, 0.5], job_id=0),
+            JobSpec(sizes=[0.5, 1.5, 2.5], probs=[0.25, 0.75, 0.0], job_id=1),
+            JobSpec(sizes=[2.0, 3.0], probs=[1.0, 0.0], job_id=2),
+            JobSpec(sizes=[1.0], probs=[1.0], job_id=3),
+            JobSpec(sizes=[0.75, 1.0, 3.0], probs=[2.0**-32, 0.5, 0.5 - 2.0**-32], job_id=4)]
+    rng = np.random.default_rng(5)
+    for label, mc_jobs, n_orders, log2_samples in (
+            ("N=20 M=3", generate_workload(np.random.default_rng(203), 20, 3), 3, 16),
+            ("N=12 M=4", generate_workload(np.random.default_rng(124), 12, 4), 3, 16),
+            ("N=5 M=3, CDF edges", edge, 4, 16),
+            ("N=1228 M=2", generate_workload(np.random.default_rng(1228), 1228), 1, 12),
+            ("N=1229 M=2", generate_workload(np.random.default_rng(1229), 1229), 1, 12),
+            ("N=8000 M=2, tables through L1", generate_workload(rng, 8000), 1, 10)):
+        n = len(mc_jobs)
+        orders = np.stack([rng.permutation(n) for _ in range(n_orders)])
+        compare("sojourn_mc", f"{label} S=2^{log2_samples} P={n_orders}", K.sojourn_mc,
+                K.sojourn_mc_torch, static_args(mc_jobs, orders, dev, (SEED, 1 << log2_samples)),
+                twice=True)
 
     jobs = generate_workload(np.random.default_rng(16), 16)
     tables = [policies.index_table(jobs, "sr"), policies.index_table(jobs, "serpt")]
@@ -813,7 +901,43 @@ def phase_kernels(dev, report) -> None:
     ):
         compare("sojourn_outcomes", label, K.sojourn_outcomes, K.sojourn_outcomes_torch,
                 outcomes_args(jobs, orders, outcomes, weights, dev),
-                time_it=label.startswith("N=16 M=2 K"))
+                time_it=label.startswith("N=16 M=2 K"), twice=True)
+
+    # the outcome kernel's plan (kernel.outcomes_plan) at its edges: P = 1, 8,
+    # 9, 17 and 40 (several groups at N = 192); N = 1, 16, 21 and 32; M = 2 to
+    # 4; K below one tile, K not a multiple of the tile's rows and K N 4
+    # bytes not a multiple of 16 (50,001 x 21); a zero-weight row in each;
+    # N = 191 and 192 on both sides of the first kernel's shared-memory limit
+    # (P5); N = 400, the direct kernel
+    def outcome_case(n, m, n_orders, n_rows, seed):
+        jobs = generate_workload(np.random.default_rng(seed), n, m)
+        rng = np.random.default_rng(seed + 1)
+        orders = np.stack([policies.rank_order(jobs)]
+                          + [rng.permutation(n) for _ in range(n_orders - 1)])
+        outcomes, weights = evaluator.sample_outcomes(jobs, n_rows, rng)
+        weights = weights.copy()
+        weights[n_rows // 2] = 0.0
+        plan = K.outcomes_plan(n, m, n_orders)
+        compare("sojourn_outcomes", f"N={n} M={m} K={n_rows} P={n_orders} {plan}",
+                K.sojourn_outcomes, K.sojourn_outcomes_torch,
+                outcomes_args(jobs, orders, outcomes, weights, dev), twice=True)
+
+    for n, m, n_orders, n_rows in ((21, 2, 1, 50_001), (21, 2, 8, 50_001), (21, 2, 9, 50_001),
+                                   (21, 2, 17, 50_001), (21, 2, 40, 50_001),
+                                   (1, 2, 9, 4099), (16, 2, 9, 4099), (32, 2, 9, 4099),
+                                   (16, 3, 17, 3001), (12, 4, 17, 3001), (21, 2, 5, 100),
+                                   (191, 2, 9, 3000), (192, 2, 9, 3000), (192, 2, 40, 3000),
+                                   (400, 2, 3, 2000)):
+        outcome_case(n, m, n_orders, n_rows, n * 1000 + n_orders)
+    # shared-memory banks: a warp's threads read consecutive words of the
+    # transposed tile whatever gcd(N, 32) is, so the time goes with N
+    for n in (16, 21, 32):
+        jobs = generate_workload(np.random.default_rng(n), n)
+        outcomes, weights = evaluator.sample_outcomes(jobs, 1 << 20, np.random.default_rng(n))
+        args = outcomes_args(jobs, policies.rank_order(jobs)[None], outcomes, weights, dev)
+        ms, _ = cuda_ms(lambda: K.sojourn_outcomes(*args), 10)
+        log(f"  sojourn_outcomes N={n} M=2 K=2^20 P=1: {ms:.4f} ms, median of 10 calls, "
+            f"{ms / n * 1e3:.3f} us a job")
 
     # flash_fwd: causal GQA, a sliding window, ragged non-causal, head dims 64
     # and 112 (Kimi-K2's), rows that see no key
@@ -1294,40 +1418,74 @@ def phase_cross_check(jobs) -> None:
 
 def phase_outcomes_path() -> dict:
     """Phase 4: the explicit-outcome path at K = 2**21, launch counts
-    around it; then each table value against the table-free one."""
+    around it (at most one ``sojourn_outcomes`` launch a static call); the
+    host wall split into the table's build, its upload (with the range
+    check on the card) and the rest of each call, and the profiled kernel
+    time of the N=27 call; then each table value against the table-free
+    one."""
     import numpy as np
+    import torch
 
     from repro_torch.core import evaluator, policies
     from repro_torch.core.jobs import generate_workload
+    from repro_torch.kernels.sojourn_eval import kernel as K
+    from repro_torch.kernels.sojourn_eval import ops
 
     rng = np.random.default_rng(21)
     j21 = generate_workload(rng, 21)
     j27 = generate_workload(rng, 27)
     rank21 = policies.rank_order(j21)
+    walls, per_call = {}, []
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[key] = time.perf_counter() - t0
+        return out
+
+    def static_call(key, *args):
+        before = K.launches["sojourn_outcomes"]
+        out = timed(key, lambda: evaluator.expected_sojourn_static(*args))
+        per_call.append(K.launches["sojourn_outcomes"] - before)
+        return out
+
     reset_counts()
-    t0 = time.perf_counter()
-    table21 = evaluator.enumerate_outcomes(j21)
-    rank_tab = evaluator.expected_sojourn_static(j21, rank21, *table21)
-    sr_tab = evaluator.expected_sojourn_dynamic(j21, "sr", *table21)
-    table27 = evaluator.sample_outcomes(j27, 1 << 21, rng)
+    table21 = timed("build21", lambda: evaluator.enumerate_outcomes(j21))
+    rank_tab = static_call("static21", j21, rank21, *table21)
+    sr_tab = timed("dynamic21", lambda: evaluator.expected_sojourn_dynamic(j21, "sr", *table21))
+    table27 = timed("build27", lambda: evaluator.sample_outcomes(j27, 1 << 21, rng))
     orders = np.stack([policies.rank_order(j27)]
                       + [policies.random_order(j27, rng) for _ in range(16)])
-    mc27 = evaluator.expected_sojourn_static(j27, orders, *table27)
-    secs = time.perf_counter() - t0
+    mc27 = static_call("static27", j27, orders, *table27)
     counts = read_counts()
+    secs = sum(walls.values())
     log(f"[outcomes path] N=21 K=2^21 enumerated: RANK={rank_tab!r} SR={sr_tab!r}; N=27 "
         f"S=2^21 sampled: RANK={mc27[0]!r}, 16 RANDOM in [{mc27[1:].min()!r}, "
         f"{mc27[1:].max()!r}]; {secs:.3f} s (host clock, tables built on the host)")
-    log(f"[outcomes path] launches: {counts}")
+    log(f"[outcomes path] launches: {counts}; sojourn_outcomes a static call: {per_call}")
     require(counts["sojourn_outcomes"] > 0, "sojourn_outcomes was not launched on its path")
+    require(all(c <= 1 for c in per_call),
+            f"a static call launched sojourn_outcomes more than once: {per_call}")
     require(bool(np.all(np.isfinite(mc27))) and bool(np.all(mc27 > 0)), f"MC values {mc27}")
+    # the wall's parts: each table's upload and range check alone, then the
+    # N=27 call's kernel under torch.profiler
+    dev = torch.device("cuda")
+    for key, jobs, table in (("upload21", j21, table21), ("upload27", j27, table27)):
+        stages = policies.padded_arrays(jobs)[2]
+        timed(key, lambda: (ops.outcome_tables(*table, stages, dev), torch.cuda.synchronize()))
+    kernel_ms, kernel_calls, device_ms = profiled_kernel_ms(
+        lambda: evaluator.expected_sojourn_static(j27, orders, *table27), "outcomes_kernel")
+    log("[outcomes path] host wall (s): " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
+        + f"; the N=27 call profiled once more: outcomes_kernel {kernel_ms} ms over "
+        f"{kernel_calls} launch(es), all device time {device_ms} ms")
     rank_exact = evaluator.expected_sojourn_static(j21, rank21)
     sr_exact = evaluator.expected_sojourn_dynamic(j21, "sr")
     rel = max(rel_err(rank_tab, rank_exact), rel_err(sr_tab, sr_exact))
     log(f"[outcomes path] table vs exact at N=21: RANK {rank_exact!r}, SR {sr_exact!r}: "
         f"max rel err {rel:.3e}")
     require(rel <= RTOL, f"table values differ from the exact ones: rel {rel:.3e}")
-    return {"launches": counts, "jobs": j21, "table": table21}
+    return {"launches": counts, "jobs": j21, "table": table21, "j27": j27, "table27": table27,
+            "orders27": orders, "walls": walls, "kernel_ms": kernel_ms}
 
 
 def serve_model(dev, cfg, warm_len: int = 64) -> dict:
@@ -1859,37 +2017,42 @@ def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report)
     rank26, rank27 = policies.rank_order(j26)[None], policies.rank_order(j27)[None]
     cases = [
         ("sojourn_enum", "N=26 M=2 K=2^26 P=1 (RANK)", K.sojourn_enum, K.sojourn_enum_torch,
-         static_args(j26, rank26, dev), 3, static_flops(j26, rank26, 1 << 26, mc=False)),
+         static_args(j26, rank26, dev), 3, static_flops(j26, rank26, 1 << 26, mc=False), 0.0),
         ("sojourn_mc", "N=27 M=2 S=2^23 P=1 (RANK)", K.sojourn_mc, K.sojourn_mc_torch,
-         static_args(j27, rank27, dev, (SEED, s)), 3, static_flops(j27, rank27, s, mc=True)),
+         static_args(j27, rank27, dev, (SEED, s)), 3, static_flops(j27, rank27, s, mc=True),
+         threefry_alu_ops(27, s)),
         # one run: the K=2^26 dynamic enumeration is the slowest kernel call
         ("dynamic_sojourn_enum", "N=26 M=2 K=2^26 P=1 (SR) W=1", D.dynamic_sojourn_enum,
          D.dynamic_sojourn_enum_torch,
          dynamic_args(j26, [policies.index_table(j26, "sr")], dev), 1,
-         dynamic_flops(j26, 1, 1 << 26, mc=False)),
+         dynamic_flops(j26, 1, 1 << 26, mc=False), 0.0),
         ("dynamic_sojourn_mc", "N=27 M=2 S=2^23 P=1 (SR) W=1", D.dynamic_sojourn_mc,
          D.dynamic_sojourn_mc_torch,
          dynamic_args(j27, [policies.index_table(j27, "sr")], dev, (SEED, s)), 3,
-         dynamic_flops(j27, 1, s, mc=True)),
+         dynamic_flops(j27, 1, s, mc=True), threefry_alu_ops(27, s)),
         ("sojourn_outcomes", "N=21 M=2 K=2^21 enumerated table, P=1 (RANK)",
          K.sojourn_outcomes, K.sojourn_outcomes_torch,
          outcomes_args(j21, policies.rank_order(j21)[None], outcomes, weights, dev), 10,
-         outcomes_flops(outcomes, policies.padded_arrays(j21)[2], 1)),
+         outcomes_flops(outcomes, policies.padded_arrays(j21)[2], 1), 0.0),
     ]
-    for name, shape, fn, plain, args, reps, flops in cases:
+    for name, shape, fn, plain, args, reps, flops, alu in cases:
         ms, got = cuda_ms(lambda: fn(*args), reps)
         plain_ms, want = cuda_ms(lambda: plain(*args), 1)
         check_against_plain(report, name, shape, got, want)
-        if name == "sojourn_enum":
+        if name in ("sojourn_enum", "sojourn_mc", "sojourn_outcomes"):
             again = fn(*args)
             require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
                     f"{name} {shape}: a second call differs from the first")
-        b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8)
+        terms = bound_terms(flops, tensor_bytes(args), 2 * 8, alu_ops=alu)
+        b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8, alu_ops=alu)
         report[name].update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, reps=reps)
-        log(f"[timing] {name} {shape}: {ms:.3f} ms, median of {reps} run(s), plain "
-            f"{plain_ms:.1f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
+                            bound_by=contract_by(b_by), bound_term=b_by, bound_terms_ms=terms,
+                            reps=reps)
+        log(f"[timing] {name} {shape}: {ms:.4f} ms, median of {reps} run(s), plain "
+            f"{plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}; terms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+            + f" ms; {flops:.4g} float64 ops, {alu:.4g} ALU-only integer ops at "
+            f"{max_sm_clock_hz() / 1e6:.0f} MHz): {b_ms / ms:.2%} of it")
     old_flops = static_flops_full_decode(j26, 1, 1 << 26)
     old_ms, _ = bound_ms(old_flops, tensor_bytes(cases[0][4]), 2 * 8)
     r = report["sojourn_enum"]
@@ -1897,18 +2060,48 @@ def phase_timing(dev, workloads, outcomes_path, large_group, moe_shapes, report)
     log(f"[timing] sojourn_enum N=26: the full-decode bound {old_ms:.4f} ms ({old_flops:.4g} "
         f"float64 ops) beside the shared-prefix one {r['bound_ms']:.4f} ms")
 
-    # the dynamic kernel at phase 3b's group: N=80, S=2^20, SR
+    # both Monte-Carlo kernels at phase 3b's group: N=80, S=2^20, RANK and SR
     jobs = large_group["jobs"]
-    args = dynamic_args(jobs, [policies.index_table(jobs, "sr")], dev,
-                        (SEED, LARGE_GROUP_SAMPLES))
-    ms, _ = cuda_ms(lambda: D.dynamic_sojourn_mc(*args), 3)
-    flops = dynamic_flops(jobs, 1, LARGE_GROUP_SAMPLES, mc=True)
-    b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8)
-    shape = f"N={LARGE_GROUP} M=2 S=2^20 P=1 (SR) W=1"
-    report["dynamic_sojourn_mc"].update(large_group_shape=shape, large_group_ms=ms,
-                                        large_group_bound_ms=b_ms)
-    log(f"[timing] dynamic_sojourn_mc {shape}: {ms:.3f} ms, median of 3 runs; bound {b_ms:.4f} ms "
-        f"({b_by}, {flops:.4g} float64 ops): {b_ms / ms:.2%} of it")
+    alu = threefry_alu_ops(LARGE_GROUP, LARGE_GROUP_SAMPLES)
+    rank = policies.rank_order(jobs)[None]
+    for name, shape, fn, args, flops in (
+            ("sojourn_mc", f"N={LARGE_GROUP} M=2 S=2^20 P=1 (RANK)", K.sojourn_mc,
+             static_args(jobs, rank, dev, (SEED, LARGE_GROUP_SAMPLES)),
+             static_flops(jobs, rank, LARGE_GROUP_SAMPLES, mc=True)),
+            ("dynamic_sojourn_mc", f"N={LARGE_GROUP} M=2 S=2^20 P=1 (SR) W=1",
+             D.dynamic_sojourn_mc,
+             dynamic_args(jobs, [policies.index_table(jobs, "sr")], dev,
+                          (SEED, LARGE_GROUP_SAMPLES)),
+             dynamic_flops(jobs, 1, LARGE_GROUP_SAMPLES, mc=True))):
+        ms, _ = cuda_ms(lambda: fn(*args), 3)
+        terms = bound_terms(flops, tensor_bytes(args), 2 * 8, alu_ops=alu)
+        b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8, alu_ops=alu)
+        report[name].update(large_group_shape=shape, large_group_ms=ms,
+                            large_group_bound_ms=b_ms, large_group_bound_terms_ms=terms)
+        log(f"[timing] {name} {shape}: {ms:.4f} ms, median of 3 runs; bound {b_ms:.4f} ms "
+            f"({b_by}; terms " + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+            + f" ms): {b_ms / ms:.2%} of it")
+
+    # sojourn_outcomes at phase 4's N=27 call: one launch for RANK and 16 RANDOM
+    # orders over the 2^21 sampled rows
+    j27s, (outcomes27, weights27), orders27 = (outcomes_path["j27"], outcomes_path["table27"],
+                                               outcomes_path["orders27"])
+    args = outcomes_args(j27s, orders27, outcomes27, weights27, dev)
+    shape = f"N=27 M=2 K=2^21 sampled table, P={len(orders27)} (phase 4)"
+    before = K.launches["sojourn_outcomes"]
+    ms, got = cuda_ms(lambda: K.sojourn_outcomes(*args), 10)
+    launches = (K.launches["sojourn_outcomes"] - before) // 10
+    plain_ms, want = cuda_ms(lambda: K.sojourn_outcomes_torch(*args), 1)
+    check_against_plain(report, "sojourn_outcomes", shape, got, want)
+    flops = outcomes_flops(outcomes27, policies.padded_arrays(j27s)[2], len(orders27))
+    terms = bound_terms(flops, tensor_bytes(args), 2 * 8 * len(orders27))
+    b_ms, b_by = bound_ms(flops, tensor_bytes(args), 2 * 8 * len(orders27))
+    report["sojourn_outcomes"].setdefault("more_shapes", []).append(
+        dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=contract_by(b_by),
+             bound_terms_ms=terms, launches_a_call=launches, reps=10))
+    log(f"[timing] sojourn_outcomes {shape}: {ms:.4f} ms, median of 10 runs, {launches} "
+        f"launch(es) a call, plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}; terms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + f" ms): {b_ms / ms:.2%} of it")
 
     # flash_fwd at the serving shape (one Qwen3-8B layer's prefill attention,
     # the row's shape), the training shape (one Qwen3-1.7B micro-batch) and
@@ -2167,7 +2360,8 @@ def main() -> int:
                                        "dropped_share", "decode_shape", "decode_ms",
                                        "decode_bound_ms", "decode_bound_by", "more_shapes",
                                        "large_group_shape", "large_group_ms",
-                                       "large_group_bound_ms", "bound_ms_full_decode",
+                                       "large_group_bound_ms", "large_group_bound_terms_ms",
+                                       "bound_term", "bound_terms_ms", "bound_ms_full_decode",
                                        "bound_ms_cuda_cores", "optimal_shape",
                                        "optimal_shape_ms", "optimal_cell") if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives shared by the kernels that are built on TMA
 // and wgmma (flash_attention/csrc/flash_fwd.cu and flash_bwd.cu,
-// moe_gemm/csrc/moe_ffn.cu; each includes this file by its relative path,
-// and kernels/_build.py hashes it into every package's digest): the
-// mbarrier ring, TMA tile loads and the tensor maps they read, wgmma
-// descriptors and products, setmaxnreg.
+// moe_gemm/csrc/moe_ffn.cu, ssd_scan/csrc/ssd_fwd.cu, and the outcome
+// kernel of sojourn_eval/csrc/sojourn_static.cu; each includes this file by
+// its relative path, and kernels/_build.py hashes it into every package's
+// digest): the mbarrier ring, TMA tile loads and the tensor maps they read,
+// 1-d bulk copies, wgmma descriptors and products, setmaxnreg.
 //
 // Tiles live in shared memory as 64-column panels of 128-byte rows in the
 // 128-byte swizzle that TMA writes and wgmma reads: a (rows, D) bf16 tile
@@ -75,6 +76,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // Make the barriers' initialisation visible to the async proxy (TMA).
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// A 1-d bulk copy of `bytes` contiguous bytes from device memory to shared
+// memory, completing on the barrier's transaction count (no tensor map).
+// Both addresses must be 16-byte aligned and `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // One box {64 columns, box rows, 1 head} of a 3-d (D, S, B*H) tensor map.

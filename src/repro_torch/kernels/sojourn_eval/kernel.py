@@ -20,11 +20,19 @@ last L positions as an odometer from the prefix's state
 product and completion times position by position in service order; its
 plain version does the same sums with ``prod`` and ``cumsum`` over a tile
 of combinations, so the two agree to rounding (1e-9 relative is the bar).
+
+The Monte-Carlo kernel decodes stop stages in the integer domain: the
+wrapper turns each position's CDF into uint32 thresholds on the card
+(:func:`mc_tables`), which give the plain version's ``u >= cdf`` stages
+bit for bit.  The outcome kernel reads the (K, N) table in the
+evaluator's own layout, every order of a group against one read of each
+row tile (:func:`outcomes_plan` picks the tile and the group).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +50,10 @@ __all__ = [
     "enum_prefixes",
     "sojourn_mc_torch",
     "sojourn_outcomes_torch",
+    "mc_tables",
+    "OutcomesPlan",
+    "outcomes_plan",
+    "outcomes_smem_bytes",
 ]
 
 #: Threads per block of the main kernels (``kThreads`` in csrc/common.cuh).
@@ -64,8 +76,25 @@ MAX_COUNT = (1 << 31) - 1
 PLAIN_TILE_BYTES = 256 << 20
 #: Kernel launches per wrapper since the last reset (set to 0 to reset).
 launches = {"sojourn_enum": 0, "sojourn_mc": 0, "sojourn_outcomes": 0}
-#: Orders a ``sojourn_outcomes`` block evaluates (``kOutChunk`` in the source).
-OUTCOMES_CHUNK = 8
+#: Streaming multiprocessors of an H100 SXM: the outcome kernel's
+#: persistent grid is a fixed number of blocks an SM, so a shape always
+#: gets the same grid (and the same bits).
+SM_COUNT = 132
+#: Shared memory a block may opt into, and that an SM holds, on an H100
+#: (227 and 228 KB); an SM keeps 1 KB of it for each resident block.
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+#: Row tiles of the outcome kernel in flight a block (its mbarrier ring).
+OUTCOMES_STAGES = 2
+#: Rows a tile of the outcome kernel, largest first (two rows a thread).
+OUTCOMES_ROWS = (256, 128, 64)
+#: Threads of an outcome-kernel block, and of its blocks on an SM, at most
+#: (``__launch_bounds__(256, 2)``: up to 128 registers a thread).
+OUTCOMES_MAX_THREADS = 256
+OUTCOMES_THREADS_PER_SM = 512
+#: Stage counts the outcome kernel's transposed tile holds (16-bit byte
+#: offsets of float64 sizes).
+OUTCOMES_MAX_M = 1 << 13
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,8 +102,9 @@ _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _SIGNATURES = {
     "sojourn_enum_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P, _P, _P],
-    "sojourn_mc_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _P, _P, _P],
-    "sojourn_outcomes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P],
+    "sojourn_mc_launch": [_P, _P, _P, _I, _I, _I, _LL, _U, _U, _I, _P, _P, _P],
+    "sojourn_outcomes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _P,
+                                _P, _P],
 }
 
 
@@ -109,11 +139,12 @@ def blocks_per_order(count: int, n_orders: int, target: int = TARGET_BLOCKS) -> 
 
 
 def launch(stem, signatures, entry, device, n_orders, count, args, rows=None,
-           scratch_per_thread=None) -> tuple:
+           scratch_per_thread=None, nblk=None) -> tuple:
     """Allocate the partials and the output on ``device``, call the C
     entry point ``entry`` on the current stream, raise on a CUDA error
     and return ``(e_succ, e_all)``.  No synchronisation.  ``rows`` is the
-    number of grid rows sharing the blocks (default: one per order).
+    number of grid rows sharing the blocks (default: one per order);
+    ``nblk``, when given, the blocks of each order's partials.
 
     With ``scratch_per_thread`` (bytes), the entry point takes a scratch
     pointer after ``args``: NULL for 0, else a buffer of that many bytes
@@ -122,8 +153,9 @@ def launch(stem, signatures, entry, device, n_orders, count, args, rows=None,
     if device.type != "cuda":
         raise ValueError(f"{entry} launches on a CUDA device; got {device}")
     lib = _build.library(stem, signatures)
-    nblk = blocks_per_order(count, rows or n_orders,
-                            SCRATCH_BLOCKS if scratch_per_thread else TARGET_BLOCKS)
+    if nblk is None:
+        nblk = blocks_per_order(count, rows or n_orders,
+                                SCRATCH_BLOCKS if scratch_per_thread else TARGET_BLOCKS)
     extra = () if scratch_per_thread is None else (None,)  # NULL: no scratch
     with torch.cuda.device(device):
         if scratch_per_thread:
@@ -292,6 +324,42 @@ def sojourn_mc_torch(sizes_p, cdf_p, radix_p, orders, seed: int, n_samples: int)
     return e_succ, e_all
 
 
+def _as_int32_bits(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as the int32 tensor of the same 32 bits."""
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
+def mc_tables(cdf_p: torch.Tensor, radix_p: torch.Tensor, orders: torch.Tensor,
+              k1: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The position tables of the Monte-Carlo kernel, made on the tensors'
+    device: ``recs`` (P, N, 4) int32 ``{job + k1, s0, r - 1, t_0}`` and
+    ``extra`` (P, N, max(M - 2, 0)) int32, the thresholds ``t_1 ..``.
+
+    The uniform is ``bits * 2**-32`` exactly, so ``u >= cdf`` holds exactly
+    when ``bits >= ceil(cdf * 2**32)``: a key of ``-1`` where that is 0 or
+    less (always; -inf too), of ``2**32`` where it is past ``2**32 - 1``
+    (never; NaN and +inf too), else the ceiling.  The stop stage is the
+    count of passed keys clamped to ``r - 1``, which only the ``min(r - 1,
+    M)`` smallest keys decide; sorted, the passed ones are a prefix.  So
+    ``s0`` counts the always-passing ones among them and each slot holds a
+    further one's key minus one (``2**32 - 1``, never, past the first ``r -
+    1``), and the kernel's ``s0 + (bits > t_0) + (bits > t_1) + ...`` (uint32
+    compares) is the plain version's stage for every ``bits``."""
+    p_orders, n, m = cdf_p.shape
+    x = torch.ceil(cdf_p * 2.0**32)
+    key = torch.where(x <= 0, -1.0, torch.where(x < 2.0**32, x, 2.0**32)).to(torch.int64)
+    key = torch.sort(key, dim=2).values
+    r1 = radix_p.to(torch.int64) - 1
+    lim = torch.clamp(r1, max=m)[..., None]  # the keys that decide the stage
+    s0 = torch.minimum((key < 0).sum(dim=2, keepdim=True), lim)
+    idx = s0 + torch.arange(max(m - 1, 1), device=cdf_p.device)
+    slot = torch.gather(key, 2, idx.clamp(max=m - 1)) - 1
+    slot = torch.where(idx < lim, slot, (1 << 32) - 1)
+    x1 = (orders.to(torch.int64) + k1) & 0xFFFFFFFF
+    recs = torch.cat([x1[..., None], s0, r1[..., None], slot[..., :1]], dim=2)
+    return _as_int32_bits(recs), _as_int32_bits(slot[..., 1:]).contiguous()
+
+
 def sojourn_mc(
     sizes_p: torch.Tensor,  # (P, N, M) float64 per-order permuted cumulative sizes
     cdf_p: torch.Tensor,  # (P, N, M) float64 per-order permuted stop-probability CDF
@@ -300,7 +368,8 @@ def sojourn_mc(
     seed: int,
     n_samples: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-MC (E[sojourn successful], E[sojourn all]) per order."""
+    """Streamed-MC (E[sojourn successful], E[sojourn all]) per order.  On the
+    card the CDF becomes uint32 thresholds once a call (:func:`mc_tables`)."""
     p_orders, n, m = sizes_p.shape
     dev = sizes_p.device
     check_tensor("sizes_p", sizes_p, torch.float64, (p_orders, n, m), dev)
@@ -311,10 +380,11 @@ def sojourn_mc(
     k0, k1 = rng.split_seed(seed)
     if dev.type == "cpu":
         return sojourn_mc_torch(sizes_p, cdf_p, radix_p, orders, seed, n_samples)
+    recs, extra = mc_tables(cdf_p, radix_p, orders, k1)
     out = launch(
         "sojourn_static", _SIGNATURES, "sojourn_mc_launch", dev, p_orders, n_samples,
-        (sizes_p.data_ptr(), cdf_p.data_ptr(), orders.data_ptr(), radix_p.data_ptr(),
-         p_orders, n, m, n_samples, k0, k1),
+        (sizes_p.data_ptr(), recs.data_ptr(), extra.data_ptr(), p_orders, n, m, n_samples,
+         k0, k1),
     )
     launches["sojourn_mc"] += 1
     return out
@@ -325,7 +395,7 @@ def sojourn_mc(
 # ---------------------------------------------------------------------------
 
 
-def sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes_t, weights):
+def sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes, weights):
     """Plain version of :func:`sojourn_outcomes` on any device."""
     p_orders, n, _ = sizes_p.shape
     k_total = weights.shape[0]
@@ -336,22 +406,80 @@ def sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes_t, weights):
     tile = _plain_tile(p_orders * n)
     for lo in range(0, k_total, tile):
         hi = min(lo + tile, k_total)
-        s = outcomes_t[:, lo:hi].T.to(torch.int64)[:, orders]  # (T, P, N) service order
+        s = outcomes[lo:hi].to(torch.int64)[:, orders]  # (T, P, N) service order
         w = weights[lo:hi, None].expand(-1, p_orders)
         _accumulate(_permuted_gather(sizes_p, s), s == radix - 1, w, e_succ, e_all)
     return e_succ, e_all
+
+
+def outcomes_smem_bytes(n: int, m: int, rows: int, stages: int, group: int,
+                        split: int) -> int:
+    """Shared-memory bytes of the outcome kernel (``OutLayout`` in the
+    source): the ring's barriers, ``stages`` tiles of ``rows`` table rows and
+    weights, the tile's weights, the group's sizes, its warps' sums and its
+    (job column, r - 1) pairs, and the tile transposed to (N, rows + 2)
+    16-bit byte offsets of the stop stages' sizes."""
+    up16 = lambda b: (b + 15) // 16 * 16  # noqa: E731
+    warps = rows // 2 // 32 * split
+    head = 32 + stages * (rows * n * 4 + rows * 8) + rows * 8
+    head += group * n * m * 8 + group * warps * 16 + group * n * 8
+    return up16(up16(head) + n * (rows // 2 + 1) * 4)
+
+
+class OutcomesPlan(NamedTuple):
+    """How the outcome kernel walks a table: ``rows`` a tile (0: the direct
+    kernel, which reads everything through L1), ``stages`` tiles in flight,
+    ``group`` orders against one read of the table, ``split`` sets of
+    ``rows / 2`` threads sharing out a group's orders, ``blocks_per_sm``."""
+
+    rows: int
+    stages: int
+    group: int
+    split: int
+    blocks_per_sm: int
+
+
+def outcomes_plan(n: int, m: int, n_orders: int) -> OutcomesPlan:
+    """The largest tile (two blocks an SM if it can, else one) whose ring,
+    transposed copy and one order's tables fit; as many orders in a group
+    as the rest holds, shared out among up to ``OUTCOMES_MAX_THREADS / (rows
+    / 2)`` sets of threads (at most one set an order); then as many blocks
+    an SM as shared memory and ``OUTCOMES_THREADS_PER_SM`` take.  At N = 27,
+    M = 2: 256 rows, up to 51 orders in a group (phase 4's 17 in one) and 2
+    sets; at N = 192: 64 rows, one block an SM and up to 22 orders; from
+    345 jobs (M = 2) the direct kernel, which also takes M past
+    ``OUTCOMES_MAX_M``."""
+    if m > OUTCOMES_MAX_M:
+        return OutcomesPlan(0, 0, n_orders, 0, 0)
+    stages = OUTCOMES_STAGES
+    for budget, per_sm in (((SMEM_SM - 2048) // 2, 2), (SMEM_BLOCK - 1024, 1)):
+        for rows in OUTCOMES_ROWS:
+            split = max(1, min(OUTCOMES_MAX_THREADS // (rows // 2), n_orders))
+            if outcomes_smem_bytes(n, m, rows, stages, 1, split) > budget:
+                continue
+            per_order = n * m * 8 + rows // 64 * split * 16 + n * 8
+            fixed = outcomes_smem_bytes(n, m, rows, stages, 0, split)
+            group = max(1, min(n_orders, (budget - fixed) // per_order))
+            while outcomes_smem_bytes(n, m, rows, stages, group, split) > budget:
+                group -= 1  # the 16-byte rounding, at most once or twice
+            split = min(split, group)
+            used = outcomes_smem_bytes(n, m, rows, stages, group, split) + 1024
+            per_sm = max(1, min(SMEM_SM // used, OUTCOMES_THREADS_PER_SM // (rows // 2 * split)))
+            return OutcomesPlan(rows, stages, group, split, per_sm)
+    return OutcomesPlan(0, 0, n_orders, 0, 0)
 
 
 def sojourn_outcomes(
     sizes_p: torch.Tensor,  # (P, N, M) float64 per-order permuted cumulative sizes
     radix_p: torch.Tensor,  # (P, N) int32 permuted stage counts
     orders: torch.Tensor,  # (P, N) int32 original job ids by position
-    outcomes_t: torch.Tensor,  # (N, K) int32 stop stages, job-major, in [0, M_i)
+    outcomes: torch.Tensor,  # (K, N) int32 stop stages, row-major, in [0, M_i)
     weights: torch.Tensor,  # (K,) float64 combination weights
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(E[sojourn successful], E[sojourn all]) per order over an explicit
-    outcome table, fused: the table is read once per chunk of
-    ``OUTCOMES_CHUNK`` orders."""
+    outcome table, fused.  On the card one launch evaluates a group of
+    orders (:func:`outcomes_plan`) against one read of the table; more
+    orders than a group make one launch a group."""
     p_orders, n, m = sizes_p.shape
     dev = sizes_p.device
     k_total = weights.shape[0] if isinstance(weights, torch.Tensor) else -1
@@ -359,15 +487,26 @@ def sojourn_outcomes(
     check_tensor("radix_p", radix_p, torch.int32, (p_orders, n), dev)
     check_tensor("orders", orders, torch.int32, (p_orders, n), dev)
     check_tensor("weights", weights, torch.float64, (k_total,), dev)
-    check_tensor("outcomes_t", outcomes_t, torch.int32, (n, k_total), dev)
+    check_tensor("outcomes", outcomes, torch.int32, (k_total, n), dev)
     check_count("K", k_total)
     if dev.type == "cpu":
-        return sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes_t, weights)
-    out = launch(
-        "sojourn_static", _SIGNATURES, "sojourn_outcomes_launch", dev, p_orders, k_total,
-        (sizes_p.data_ptr(), radix_p.data_ptr(), orders.data_ptr(), outcomes_t.data_ptr(),
-         weights.data_ptr(), p_orders, n, m, k_total),
-        rows=-(-p_orders // OUTCOMES_CHUNK),
-    )
-    launches["sojourn_outcomes"] += 1
-    return out
+        return sojourn_outcomes_torch(sizes_p, radix_p, orders, outcomes, weights)
+    plan = outcomes_plan(n, m, p_orders)
+    parts = []
+    for lo in range(0, p_orders, plan.group):
+        hi = min(lo + plan.group, p_orders)
+        if plan.rows:
+            nblk = min(-(-k_total // plan.rows), plan.blocks_per_sm * SM_COUNT)
+        else:
+            nblk = blocks_per_order(k_total, hi - lo)
+        parts.append(launch(
+            "sojourn_static", _SIGNATURES, "sojourn_outcomes_launch", dev, hi - lo, k_total,
+            (sizes_p[lo:hi].data_ptr(), radix_p[lo:hi].data_ptr(), orders[lo:hi].data_ptr(),
+             outcomes.data_ptr(), weights.data_ptr(), hi - lo, n, m, k_total, plan.rows,
+             plan.stages, plan.split),
+            nblk=nblk,
+        ))
+        launches["sojourn_outcomes"] += 1
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

@@ -15,13 +15,15 @@ versions.  Entry modes:
 * ``sojourn_eval(..., outcomes=, weights=)`` — *explicit outcomes*:
   Monte-Carlo samples or a shared exact table, ``(K, N)`` stop stages in
   original job indexing, through the ``sojourn_outcomes`` kernel.  The
-  table goes to the device once, job-major (``(N, K)``, see
-  :func:`outcome_tables`), and every order batch reads it there.
+  table goes to the device once, in that layout (see
+  :func:`outcome_tables`), and the kernel evaluates a group of orders
+  against one read of it.
 
 Orders are evaluated in batches of the reference's size
-(:func:`_order_batch`, at most 4096), each batch one launch; the inputs'
-job axis is permuted on the host per order (:func:`static_kernel_args`,
-:func:`outcomes_kernel_args`).
+(:func:`_order_batch`, at most 4096), each batch one launch, except for
+explicit tables on the card, whose orders go to the kernel's wrapper in
+one call (:func:`_outcome_batch`); the inputs' job axis is permuted on the
+host per order (:func:`static_kernel_args`, :func:`outcomes_kernel_args`).
 """
 
 from __future__ import annotations
@@ -120,8 +122,11 @@ def static_kernel_args(sizes, probs, num_stages, orders_b, device, samples=None)
 
 def outcome_tables(outcomes, weights, num_stages, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The explicit table as :func:`kernel.sojourn_outcomes` reads it:
-    ``(N, K)`` int32 job-major outcomes and ``(K,)`` float64 weights on
-    ``device``.  Raises unless every outcome lies in ``[0, M_i)``."""
+    ``(K, N)`` int32 row-major outcomes, the evaluator's own layout, and
+    ``(K,)`` float64 weights on ``device``.  A contiguous int32 table is
+    neither copied nor transposed on the host (on the CPU the tensor shares
+    its memory).  Raises unless every outcome lies in ``[0, M_i)``: checked
+    on ``device``, one reduction, for an int32 table."""
     num_stages = np.asarray(num_stages, dtype=np.int64)
     outcomes = np.asarray(outcomes)
     weights = np.asarray(weights, dtype=np.float64)
@@ -130,9 +135,15 @@ def outcome_tables(outcomes, weights, num_stages, device) -> tuple[torch.Tensor,
         raise ValueError(f"outcomes must be (K, {n}); got {outcomes.shape}")
     if weights.shape != (outcomes.shape[0],):
         raise ValueError(f"weights must be ({outcomes.shape[0]},); got {weights.shape}")
-    if outcomes.size and (outcomes.min() < 0 or np.any(outcomes >= num_stages[None, :])):
-        raise ValueError("every outcome must be a stage index in [0, M_i)")
-    table = torch.as_tensor(np.ascontiguousarray(outcomes.T, dtype=np.int32), device=device)
+    bad = "every outcome must be a stage index in [0, M_i)"
+    if outcomes.dtype != np.int32:  # a conversion anyway: checked before it wraps
+        if outcomes.size and (outcomes.min() < 0 or np.any(outcomes >= num_stages[None, :])):
+            raise ValueError(bad)
+        outcomes = outcomes.astype(np.int32)
+    table = torch.as_tensor(np.ascontiguousarray(outcomes), device=device)
+    limit = torch.as_tensor(num_stages.astype(np.int32), device=device)
+    if table.numel() and bool(((table < 0) | (table >= limit)).any()):
+        raise ValueError(bad)
     return table, torch.as_tensor(weights, device=device)
 
 
@@ -153,10 +164,18 @@ def _check_orders(orders, n: int) -> np.ndarray:
     return orders
 
 
+def _outcome_batch(dev, n_orders: int, k_total: int, n: int) -> int:
+    """Orders a :func:`kernel.sojourn_outcomes` call takes: all of them on
+    the card (its wrapper launches a group of orders against one read of
+    the table, :func:`kernel.outcomes_plan`), the reference's batch as the
+    plain version's memory cap elsewhere."""
+    return n_orders if dev.type == "cuda" else _order_batch(n_orders, k_total, n)
+
+
 def _outcomes_eval(sizes, num_stages, orders, outcomes, weights, dev):
     orders = _check_orders(orders, len(num_stages))
     tables = outcome_tables(outcomes, weights, num_stages, dev)
-    pb = _order_batch(orders.shape[0], tables[1].shape[0], len(num_stages))
+    pb = _outcome_batch(dev, orders.shape[0], tables[1].shape[0], len(num_stages))
     parts = [
         K.sojourn_outcomes(*outcomes_kernel_args(sizes, num_stages, orders[lo : lo + pb],
                                                  tables, dev))

@@ -288,8 +288,8 @@ def _kernel_args():
 @pytest.mark.parametrize("bad,exc", [
     (lambda a: [a[0].float(), *a[1:]], TypeError),  # float32 sizes
     (lambda a: [a[0], a[1].long(), *a[2:]], TypeError),  # int64 radix
-    (lambda a: [*a[:3], a[3][:, :5], a[4]], ValueError),  # table/weights length mismatch
-    (lambda a: [*a[:3], a[3].T.contiguous().T, a[4]], ValueError),  # row-major table
+    (lambda a: [*a[:3], a[3][:5], a[4]], ValueError),  # table/weights length mismatch
+    (lambda a: [*a[:3], a[3].T.contiguous().T, a[4]], ValueError),  # job-major table
     (lambda a: [*a[:4], a[4].to("meta")], ValueError),  # mixed devices
 ])
 def test_wrapper_rejects_bad_inputs(bad, exc):
