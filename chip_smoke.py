@@ -66,6 +66,22 @@ Phases, each of which must pass:
    into table builds, uploads and calls, and the N=27 call's kernel time
    under ``torch.profiler``; the table values must equal the exact
    (table-free) ones to 1e-9;
+4b. run the paper's studies through the entry points a user calls
+   (``STUDY_SETS``, ``DES_*``, ``TRACE_SERVERS``): ``evaluate_many`` over
+   OPTIMAL, RANK, SERPT, SR and RANDOM for workload sets 1 and 4 at N = 3-8,
+   M = 2, each value within 1e-9 of the same call on the CPU (identically
+   seeded rngs), ``sojourn_enum`` and ``dynamic_sojourn_enum`` launched and
+   no Monte-Carlo kernel; the host wall and launches of each call by N, the
+   card's busy share of one N = 8 call under ``torch.profiler``, and the
+   study's projected host time at CI and paper scale; ``table_sojourn`` for
+   ``TABLE_STUDY`` through ``repro_torch.launch.study`` on the card, its rows
+   within 1e-9 of the same table with ``device="cpu"``.  Then an exhaustive
+   DES (``simulate`` over every outcome combination of ragged 6-job groups
+   with untied, finite SR and SERPT tables) within 1e-9 of
+   ``dynamic_sojourn_enum`` on 1, 2 and 3 servers, and ``simulate`` over the
+   whole synthetic trace (109,967 jobs) on 5 and 100 servers for FIFO,
+   SERPT, RANK and SR: the wall a run, events a second, the mean sojourn of
+   successful jobs and their count;
 5. serve four models with random weights through
    ``repro_torch.launch.serve``, each 4 prompts of 2048 tokens and 32 new
    tokens, each with a decode-against-prefill check and, under
@@ -133,15 +149,17 @@ Phases, each of which must pass:
    one behind a sleep on the card (``PREFILL_CYCLES``), so it measures
    the card and not the host.
 
-Phases 3, 4, each serving run of 5 and the training run of 6 set every
+Phases 3, 4, 4b, each serving run of 5 and the training run of 6 set every
 launch count to 0 just before they drive their path and read the counts
 just after: every kernel of the path must have launched.
 
 Each kernel's ``bound_by`` is ``operations`` or ``bytes``; ``bound_term``
 says which term won (``operations``, ``integer`` or ``bytes``).
 
-It prints the kernel report as one JSON line, the card's name and power
-limit from ``nvidia-smi``, and as its last line
+It prints the study's measured numbers as one JSON line
+(``{"numerical_study": ...}``, tied to no kernel; the projections are only
+in its ``[study]`` log line), the kernel report as one JSON line, the card's
+name and power limit from ``nvidia-smi``, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or when a phase fails, it exits non-zero and prints no
 result.  It imports nothing of JAX and nothing of the JAX package.
@@ -303,6 +321,21 @@ KIMI_LAYERS, KIMI_PEAK_GB, KIMI_NO_DROP_PROMPT, KIMI_REL_L2 = 1, 70.0, 128, 0.15
 #: The group of evaluate_many past the int64 outcome count: 80 two-stage
 #: jobs, streamed with 2**20 samples.
 LARGE_GROUP, LARGE_GROUP_SAMPLES = 80, 1 << 20
+#: The study phase (4b): the numerical study's sweep (N = 3-8 two-stage
+#: jobs) for workload sets STUDY_SETS, STUDY_TRIALS groups a (set, N) and
+#: STUDY_TRIALS_LAST at N = 8, each through evaluate_many on the card and
+#: again on the CPU.
+STUDY_SETS, STUDY_TRIALS, STUDY_TRIALS_LAST = (1, 4), 6, 2
+#: (workload sets, N) of the table that phase 4b also drives through
+#: ``repro_torch.launch.study``, at its CI-scale trials (400 at N = 3).
+TABLE_STUDY = ((1,), (3,))
+#: Its DES check: DES_GROUPS ragged groups of DES_JOBS jobs of 1 to
+#: DES_MAX_STAGES stages with at least DES_MIN_COMBOS outcome combinations,
+#: every combination simulated on each of DES_SERVERS servers.
+DES_GROUPS, DES_JOBS, DES_MAX_STAGES, DES_MIN_COMBOS, DES_SERVERS = 3, 6, 3, 64, (1, 2, 3)
+#: Its online study: the whole synthetic trace (TRACE.n_jobs, seed 13, as
+#: the study's table_trace makes it) on these server counts.
+TRACE_SERVERS = (5, 100)
 #: The training phase: Qwen3-1.7B at full width and depth at train_4k's
 #: 4,096 tokens, its global batch of 256 sequences cut to 4 a step, as 2
 #: micro-batches of 2; 9 optimizer steps, the first the warm-up, the
@@ -1488,6 +1521,231 @@ def phase_outcomes_path() -> dict:
             "orders27": orders, "walls": walls, "kernel_ms": kernel_ms}
 
 
+def ragged_group(rng, n_jobs: int, max_stages: int) -> list:
+    """``n_jobs`` jobs of 1 to ``max_stages`` stages from ``rng``, each with
+    a positive success probability."""
+    import numpy as np
+
+    from repro_torch.core.jobs import JobSpec
+
+    jobs = []
+    for i in range(n_jobs):
+        m = int(rng.integers(1, max_stages + 1))
+        w = np.append(rng.uniform(0.0, 1.0, m - 1), rng.uniform(0.05, 1.0))
+        jobs.append(JobSpec(sizes=np.cumsum(rng.uniform(0.01, 4.0, m)), probs=w / w.sum(),
+                            job_id=i))
+    return jobs
+
+
+def untied(jobs, policy: str) -> bool:
+    """Every stage's index finite and no two equal: the DES breaks index
+    ties by insertion order where the lockstep kernels break them by job
+    position, and serves a +inf index last where they never seat it (R2)."""
+    import numpy as np
+
+    from repro_torch.core import policies
+
+    table = policies.index_table(jobs, policy)
+    num_stages = policies.padded_arrays(jobs)[2]
+    live = table[np.arange(table.shape[1])[None, :] < num_stages[:, None]]
+    return bool(np.all(np.isfinite(live))) and len(np.unique(live)) == len(live)
+
+
+def table_study(study) -> None:
+    """Tables IV-VIII through ``repro_torch.launch.study`` at its CI-scale
+    trials for one (set, N), TABLE_STUDY: ``_numerical_study`` with
+    ``device=None`` (the card) and ``device="cpu"`` from the same seed, both
+    written by ``table_sojourn`` to a temporary directory; every row within
+    RTOL, its ``rank_vs_optimal_pct`` to the absolute error that two values
+    within RTOL allow."""
+    import tempfile
+
+    sets, n_jobs = TABLE_STUDY
+    before = read_counts()
+    t0 = time.perf_counter()
+    card = study._numerical_study(False, sets=sets, n_jobs=n_jobs)
+    secs = time.perf_counter() - t0
+    launched = read_counts()["sojourn_enum"] - before["sojourn_enum"]
+    require(launched > 0, "the study's device=None path launched no sojourn_enum")
+    plain = study._numerical_study(False, sets=sets, n_jobs=n_jobs, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = study.table_sojourn(study=card, out=os.path.join(tmp, "card"))
+        want = study.table_sojourn(study=plain, out=os.path.join(tmp, "cpu"))
+        with open(os.path.join(tmp, "card", "table_sojourn.json")) as f:
+            saved = json.load(f)
+    require(saved["rows"] == rows and "workload_cache" in saved,
+            f"table_sojourn's saved layout: {sorted(saved)}")
+    worst = 0.0
+    for got, ref in zip(rows, want, strict=True):
+        require(got.keys() == ref.keys(), f"table_sojourn keys: {got.keys()} != {ref.keys()}")
+        for key, value in got.items():
+            if key == "rank_vs_optimal_pct":
+                allow = 100 * 2 * RTOL * ref["rank"] / ref["optimal"]
+                require(abs(value - ref[key]) <= allow, f"table_sojourn {key}: {value!r} "
+                        f"!= {ref[key]!r}")
+            elif isinstance(value, float):
+                worst = max(worst, rel_err(value, ref[key]))
+                require(rel_err(value, ref[key]) <= RTOL, f"table_sojourn {key}: card "
+                        f"{value!r}, plain {ref[key]!r}")
+            else:
+                require(value == ref[key], f"table_sojourn {key}: {value!r} != {ref[key]!r}")
+    log(f"[study] table_sojourn through repro_torch.launch.study (sets {sets}, N = {n_jobs}, "
+        f"{sum(r['trials'] for r in rows)} calls) on the card in {secs:.2f} s, "
+        f"{launched} sojourn_enum launches: every row within {worst:.3e} of device=\"cpu\"")
+
+
+def phase_study() -> dict:
+    """Phase 4b: the paper's studies through the entry points a user calls.
+
+    The numerical study: ``evaluate_many`` over the five algorithms for
+    workload sets STUDY_SETS at N = 3-8, M = 2 on the card, each value held
+    to the same call on the CPU (identically seeded rngs) within RTOL, with
+    the launch counts set to 0 just before and read just after; the host
+    wall and the launches of each call, and the card's busy share of one
+    more N = 8 call under ``torch.profiler``; from the median walls, the
+    projected host time of the study at CI scale and at paper scale.  One
+    table (``table_study``) also goes through ``repro_torch.launch.study``
+    inside the counted window.  Then an exhaustive DES (``simulate`` over every outcome combination, weighted
+    by its probability) against ``dynamic_sojourn_enum`` on DES_SERVERS
+    servers, and the online study over the whole synthetic trace."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs.paper_workloads import NUMERICAL, TRACE
+    from repro_torch.core import evaluator, simulator
+    from repro_torch.core.jobs import generate_workload
+    from repro_torch.core.trace import synthesize_trace
+    from repro_torch.launch import study
+    from repro_torch.launch.study import STUDY_ALGS, _trials_for
+
+    sweep = NUMERICAL.n_jobs_sweep
+    kernels = ("sojourn_enum", "dynamic_sojourn_enum")
+    walls = {n: [] for n in sweep}
+    per_call = {n: set() for n in sweep}
+    worst = 0.0
+    reset_counts()
+    for ws in STUDY_SETS:
+        for n in sweep:
+            seed = 1000 * ws + n
+            g_card, g_cpu = np.random.default_rng(seed), np.random.default_rng(seed)
+            for _ in range(STUDY_TRIALS_LAST if n == max(sweep) else STUDY_TRIALS):
+                jobs = generate_workload(g_card, n, NUMERICAL.num_stages, ws)
+                before = read_counts()
+                t0 = time.perf_counter()
+                got = evaluator.evaluate_many(jobs, STUDY_ALGS, g_card)
+                walls[n].append(time.perf_counter() - t0)
+                after = read_counts()
+                per_call[n].add(tuple(after[k] - before[k] for k in kernels))
+                want = evaluator.evaluate_many(
+                    generate_workload(g_cpu, n, NUMERICAL.num_stages, ws), STUDY_ALGS, g_cpu,
+                    device="cpu")
+                for alg in STUDY_ALGS:
+                    require(math.isfinite(got[alg]) and got[alg] > 0,
+                            f"study set {ws} N={n}: {alg}={got[alg]!r}")
+                    worst = max(worst, rel_err(got[alg], want[alg]))
+                    require(rel_err(got[alg], want[alg]) <= RTOL,
+                            f"study set {ws} N={n} {alg}: card {got[alg]!r}, plain {want[alg]!r}")
+                require(got["optimal"] <= min(got.values()) * (1 + RTOL),
+                        f"study set {ws} N={n}: OPTIMAL above another policy: {got}")
+    table_study(study)
+    counts = read_counts()
+    log(f"[study] launches: {counts}; every value within {worst:.3e} of the plain path")
+    for name in kernels:
+        require(counts[name] > 0, f"kernel {name} was not launched by the numerical study")
+    require(counts["sojourn_mc"] == 0 and counts["dynamic_sojourn_mc"] == 0,
+            f"a Monte-Carlo kernel ran at K <= 2^8: {counts}")
+    by_n = {}
+    for n in sweep:
+        require(len(per_call[n]) == 1, f"N={n}: launches differ between calls: {per_call[n]}")
+        (launched,) = per_call[n]
+        by_n[n] = {"calls": len(walls[n]), "median_s": statistics.median(walls[n]),
+                   "min_s": min(walls[n]), "max_s": max(walls[n]),
+                   "launches_a_call": dict(zip(kernels, launched))}
+        log(f"[study] N={n} M={NUMERICAL.num_stages}: {len(walls[n])} calls, host wall a call "
+            f"median {by_n[n]['median_s']:.4f} s (min {by_n[n]['min_s']:.4f}, max "
+            f"{by_n[n]['max_s']:.4f}); launches a call {by_n[n]['launches_a_call']}")
+    # one more N = 8 call under torch.profiler: the card's busy share of its wall
+    n8 = max(sweep)
+    jobs8 = generate_workload(np.random.default_rng(8), n8, NUMERICAL.num_stages, 1)
+    box = {}
+
+    def call():
+        t0 = time.perf_counter()
+        evaluator.evaluate_many(jobs8, STUDY_ALGS, np.random.default_rng(9))
+        box["s"] = time.perf_counter() - t0
+
+    traced = device_kernels(call)
+    device_ms = sum(e.self_device_time_total for e in traced) / 1e3 or None
+    busy = device_ms / (box["s"] * 1e3) if device_ms else None
+    log(f"[study] N={n8} call under torch.profiler: device time "
+        f"{device_ms if device_ms is None else f'{device_ms:.3f}'} ms in a host wall of "
+        f"{box['s'] * 1e3:.3f} ms: busy share "
+        f"{'not measured' if busy is None else f'{busy:.2%}'}")
+    sets = len(NUMERICAL.workload_sets)
+    ci_set = sum(_trials_for(n, False) * by_n[n]["median_s"] for n in sweep)
+    paper_set = sum(_trials_for(n, True) * by_n[n]["median_s"] for n in sweep)
+    calls_ci = sum(_trials_for(n, False) for n in sweep)
+    log(f"[study] projected host time from the median walls: CI scale {calls_ci} calls a set, "
+        f"{ci_set:.1f} s a set, {ci_set * sets:.1f} s for sets 1-{sets}; paper scale "
+        f"{NUMERICAL.trials} trials a (set, N), {paper_set / 3600:.2f} h a set, "
+        f"{paper_set * sets / 3600:.2f} h for sets 1-{sets} (projected, not run)")
+
+    # the exhaustive DES against the dynamic kernel on 1-3 servers
+    rng = np.random.default_rng(SEED)
+    groups = []
+    while len(groups) < DES_GROUPS:
+        jobs = ragged_group(rng, DES_JOBS, DES_MAX_STAGES)
+        if (evaluator.exact_combination_count(jobs) >= DES_MIN_COMBOS and untied(jobs, "sr")
+                and untied(jobs, "serpt")):
+            groups.append(jobs)
+    des_worst, t0 = 0.0, time.perf_counter()
+    for jobs in groups:
+        outcomes, weights = evaluator.enumerate_outcomes(jobs)
+        fixed = [[dataclasses.replace(j, outcome_stage=int(s)) for j, s in zip(jobs, row)]
+                 for row in outcomes]
+        for policy in ("sr", "serpt"):
+            for w in DES_SERVERS:
+                des = sum(wt * simulator.simulate(f, w, policy).mean_sojourn_successful
+                          for f, wt in zip(fixed, weights))
+                card = evaluator.expected_sojourn_dynamic(jobs, policy, n_servers=w)
+                des_worst = max(des_worst, rel_err(des, card))
+                require(rel_err(des, card) <= RTOL,
+                        f"exhaustive DES {des!r} != dynamic_sojourn_enum {card!r} "
+                        f"({policy}, W={w}, K={len(outcomes)})")
+    log(f"[study] exhaustive DES vs dynamic_sojourn_enum: {DES_GROUPS} ragged groups of "
+        f"{DES_JOBS} jobs (K = {[len(evaluator.enumerate_outcomes(j)[0]) for j in groups]}), "
+        f"SR and SERPT, W = {DES_SERVERS}: max rel err {des_worst:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the online study over the whole synthetic trace (host code by design)
+    t0 = time.perf_counter()
+    trace = synthesize_trace(np.random.default_rng(13), n_jobs=TRACE.n_jobs,
+                             duration_days=TRACE.duration_days)
+    events = len(trace) + sum(j.outcome_stage + 1 for j in trace)
+    log(f"[study] synthesize_trace: {len(trace)} jobs in {time.perf_counter() - t0:.2f} s; "
+        f"{events} heap events a run (each arrival and each served stage)")
+    online = []
+    for w in TRACE_SERVERS:
+        for policy in TRACE.policies:
+            t0 = time.perf_counter()
+            res = simulator.simulate(trace, w, policy=policy, rng=np.random.default_rng(17))
+            secs = time.perf_counter() - t0
+            require(res.n_jobs == TRACE.n_jobs and math.isfinite(res.mean_sojourn_successful)
+                    and res.n_success > 0, f"trace W={w} {policy}: {res}")
+            online.append({"servers": w, "policy": policy, "wall_s": secs,
+                           "events_per_s": events / secs,
+                           "mean_sojourn_successful": res.mean_sojourn_successful,
+                           "n_success": res.n_success})
+            log(f"[study] trace W={w} {policy}: {secs:.3f} s, {events / secs:.0f} events/s, "
+                f"mean sojourn of successful jobs {res.mean_sojourn_successful!r}, "
+                f"n_success {res.n_success}")
+    return {"launches": counts, "by_n": by_n, "max_rel_err": worst,
+            "n8_device_ms": device_ms, "n8_profiled_wall_s": box["s"], "n8_busy_share": busy,
+            "des_max_rel_err": des_worst, "trace": online}
+
+
 def serve_model(dev, cfg, warm_len: int = 64) -> dict:
     """Random weights for ``cfg`` from the seed, a short warm-up (cuBLAS,
     the kernels), then one timed ``generate`` of SERVE_BATCH prompts of
@@ -2316,6 +2574,7 @@ def main() -> int:
     large_group = phase_large_group()
     phase_cross_check(main_path["workloads"][26])
     outcomes_path = phase_outcomes_path()
+    study = phase_study()
     serving = phase_serving(dev)
     mamba = phase_serving_mamba(dev)
     mixtral = phase_serving_mixtral(dev)
@@ -2339,6 +2598,10 @@ def main() -> int:
     sojourn_by_path = {name: main_path["launches"][name] + large_group["launches"][name]
                        for name in ("sojourn_enum", "sojourn_mc", "dynamic_sojourn_enum",
                                     "dynamic_sojourn_mc")}
+    for name in ("sojourn_enum", "dynamic_sojourn_enum"):
+        report[name]["launches_by_path"] = {"main path": sojourn_by_path[name],
+                                            "numerical study": study["launches"][name]}
+        sojourn_by_path[name] += study["launches"][name]
     launches = {**sojourn_by_path, "sojourn_outcomes":
                 outcomes_path["launches"]["sojourn_outcomes"],
                 "flash_fwd": sum(flash_by_path.values()),
@@ -2363,11 +2626,15 @@ def main() -> int:
                                        "large_group_bound_ms", "large_group_bound_terms_ms",
                                        "bound_term", "bound_terms_ms", "bound_ms_full_decode",
                                        "bound_ms_cuda_cores", "optimal_shape",
-                                       "optimal_shape_ms", "optimal_cell") if key in r},
+                                       "optimal_shape_ms", "optimal_cell")
+               if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
         })
     check_shares(kernels)
+    log(json.dumps({"numerical_study": {key: study[key] for key in (
+        "by_n", "max_rel_err", "n8_device_ms", "n8_profiled_wall_s", "n8_busy_share",
+        "des_max_rel_err", "trace")}}))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -12,7 +12,10 @@ under ``kernels/<package>/csrc/`` (the fused evaluator's five in
 ``moe_gemm``), built with ``nvcc`` at first use.  Beside the evaluator, ``models/`` and
 ``launch/serve.py`` serve the dense, moe and ssm model families on one
 card, and ``launch/train.py`` (with ``optim/``, ``data/`` and ``ckpt/``)
-trains them.
+trains them.  The online path (``core/des``, ``core/simulator.py``,
+``core/trace.py``, ``cluster/``, ``obs/recorder.py`` and ``obs/report.py``)
+runs on the host, as the reference's does, and ``launch/study.py`` runs the
+paper's numerical and trace studies.
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

@@ -6,6 +6,9 @@
 * :mod:`repro_torch.core.evaluator` — exact / streamed Monte-Carlo
   expected sojourn of successful jobs on the CUDA card, exhaustive OPTIMAL
 * :mod:`repro_torch.core.theory` — Theorem III.2 / Lemma III.3 numerics
+* :mod:`repro_torch.core.simulator` — multi-server online DES (paper §V),
+  host code over :mod:`repro_torch.core.des`
+* :mod:`repro_torch.core.trace` — Philly-statistics trace synthesis (§VI-A)
 """
 
 from repro_torch.core.jobs import JobSpec, generate_workload, pad_workload  # noqa: F401
@@ -16,3 +19,5 @@ from repro_torch.core.policies import (  # noqa: F401
     sr_rank_values,
 )
 from repro_torch.core.evaluator import evaluate, evaluate_many, optimal_order  # noqa: F401
+from repro_torch.core.simulator import SimResult, simulate  # noqa: F401
+from repro_torch.core.trace import synthesize_trace  # noqa: F401

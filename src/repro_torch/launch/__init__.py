@@ -1,1 +1,2 @@
-"""Launchers of the port: serving on one device (``serve``)."""
+"""Launchers of the port: serving (``serve``), training (``train``) and the
+paper's studies (``study``)."""

@@ -1,10 +1,14 @@
 """Counters / gauges / histograms with a JSON-able snapshot surface.
 
-The port's copy of ``repro/obs/metrics.py``: the :class:`MetricsRegistry`
-that the profiling spans (:mod:`repro_torch.obs.profiling`) and the
-workload-cache latency probes feed, and :func:`format_snapshot` for CLI
-output.  ``record_run_metrics`` belongs to the online scheduling path,
-which this package does not carry yet.
+The port's copy of ``repro/obs/metrics.py``.  One :class:`MetricsRegistry`
+replaces ad-hoc result dicts: the DES
+(:func:`repro_torch.core.simulator.simulate`) and the cluster manager
+(:meth:`repro_torch.cluster.manager.ClusterManager.run`) populate a
+registry passed by the caller through :func:`record_run_metrics`, the
+profiling spans (:mod:`repro_torch.obs.profiling`) and the workload-cache
+latency probes feed the process-wide default registry, and
+``python -m repro_torch.obs.report`` dumps everything as one JSON
+artifact; :func:`format_snapshot` renders a snapshot for CLI output.
 
 Design constraints: metric updates are hot-path cheap (an attribute
 add / list append), snapshots are pure reads, and everything in a
@@ -26,6 +30,7 @@ __all__ = [
     "MetricsRegistry",
     "get_registry",
     "format_snapshot",
+    "record_run_metrics",
 ]
 
 #: Percentiles reported by histogram snapshots.
@@ -170,6 +175,41 @@ class MetricsRegistry:
             with open(path, "w") as f:
                 f.write(text)
         return text
+
+
+def record_run_metrics(reg: MetricsRegistry, engine, arrivals, success) -> None:
+    """Fill the standard scheduler-run metrics from a finished engine.
+
+    Shared by both frontends so ``simulate(..., metrics=reg)`` and
+    ``ClusterManager.run(metrics=reg)`` populate one catalog (see
+    ``docs/observability.md``): success/cancel counts, sojourn
+    percentiles split by outcome, makespan, server busy fraction
+    (busy time over the time integral of the server target, so elastic
+    resizes weigh correctly), and wasted work (failure-aborted stage
+    time plus all service spent on jobs that end canceled).
+
+    Counters/histograms accumulate across runs sharing a registry
+    (policy sweeps); gauges are per-run, last write wins.
+    """
+    arrivals = np.asarray(arrivals, dtype=np.float64)
+    success = np.asarray(success, dtype=bool)
+    sojourn = engine.completion - arrivals
+    done = ~np.isnan(sojourn)
+    reg.counter("jobs.total").inc(len(arrivals))
+    reg.counter("jobs.successful").inc(int((success & done).sum()))
+    reg.counter("jobs.canceled").inc(int((~success & done).sum()))
+    reg.histogram("sojourn.successful").observe_many(sojourn[success & done])
+    reg.histogram("sojourn.canceled").observe_many(sojourn[~success & done])
+    reg.gauge("run.makespan").set(engine.makespan)
+    denom = engine.target_integral
+    reg.gauge("servers.busy_fraction").set(
+        engine.busy_time / denom if denom > 0 else 0.0
+    )
+    reg.gauge("work.busy_time").set(engine.busy_time)
+    reg.gauge("work.aborted_time").set(engine.aborted_time)
+    reg.gauge("work.wasted").set(
+        engine.aborted_time + float(engine.service_time[~success].sum())
+    )
 
 
 _DEFAULT = MetricsRegistry()

@@ -40,6 +40,9 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.launch.serve, repro_torch.models.transformer\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.moe_gemm\n"
         "import repro_torch.models.ssm, repro_torch.models.moe\n"
+        "import repro_torch.core.des, repro_torch.core.simulator, repro_torch.core.trace\n"
+        "import repro_torch.cluster, repro_torch.cluster.faults, repro_torch.cluster.manager\n"
+        "import repro_torch.obs.recorder, repro_torch.obs.report, repro_torch.launch.study\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
