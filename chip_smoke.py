@@ -14,8 +14,17 @@ Phases, each of which must pass:
    ptxas reports; the TMA and wgmma kernels and the sojourn kernels
    (``CLEAN_PTXAS``: attention, the MoE FFN, the SSD scan,
    ``sojourn_dynamic`` and ``sojourn_static``) must show neither;
-1. hold each of the ten kernels against its plain PyTorch version on
-   the card at mid sizes: the sojourn kernels to a relative error of at
+1. first the kernel regimes of the hybrid, vlm and encdec families,
+   each against its plain version with a second call bitwise equal:
+   ``flash_fwd`` with one query row and with Sq != Skv over the vision
+   model's 1,664 image tokens (D = 128), bidirectional at Sq = Skv =
+   2,048 and one query row there (D = 64, Seamless), a ragged five-row
+   case, and ``flash_dkv`` / ``flash_dq`` at that case; ``ssd_fwd`` at
+   Jamba's N = 16, P = 64, 128 heads, one group (2,048 steps, and 255,
+   shorter than a chunk); ``moe_ffn_fwd`` at Jamba's prefill and decode
+   shapes (E = 16); the prefill-sized ones timed beside their bounds
+   (each kernel's ``regimes``).  Then hold each of the ten kernels
+   against its plain PyTorch version on the card at mid sizes: the sojourn kernels to a relative error of at
    most 1e-9 (with one dynamic case whose rank table holds a +inf index,
    ROADMAP fault R2, groups of 65, 80 and 160 jobs, and the dynamic
    kernel's paths on both sides of each limit: N M = 64 and 65, 256 and
@@ -79,10 +88,13 @@ Phases, each of which must pass:
    DES (``simulate`` over every outcome combination of ragged 6-job groups
    with untied, finite SR and SERPT tables) within 1e-9 of
    ``dynamic_sojourn_enum`` on 1, 2 and 3 servers, and ``simulate`` over the
-   whole synthetic trace (109,967 jobs) on 5 and 100 servers for FIFO,
-   SERPT, RANK and SR: the wall a run, events a second, the mean sojourn of
-   successful jobs and their count;
-5. serve four models with random weights through
+   whole synthetic trace (109,967 jobs) for RANK on 5 servers: the wall,
+   events a second, the mean sojourn of successful jobs and their count.
+   Last, the seed designs against the fused kernels:
+   ``table_eval_perf``, ``table_eval_dynamic`` and ``table_eval_mc``
+   through ``repro_torch.launch.study`` on the card at the reference's CI
+   sizes, with the reference's own checks and their rows logged;
+5. serve seven models with random weights through
    ``repro_torch.launch.serve``, each 4 prompts of 2048 tokens and 32 new
    tokens, each with a decode-against-prefill check and, under
    ``torch.profiler``, the card's busy share of one more prefill and three
@@ -110,6 +122,24 @@ Phases, each of which must pass:
       ``KIMI_PEAK_GB``; the drop share logged; decode step 1 against a
       prefill of prompt + 1 token within ``KIMI_REL_L2`` on a no-drop copy,
       with 4 x ``KIMI_NO_DROP_PROMPT`` prompt tokens;
+   e. Jamba at full width and ``JAMBA_LAYERS`` of its 32 layers (one
+      period): ``flash_fwd`` at its attention layer, ``ssd_fwd`` at its 7
+      Mamba layers (prefill), ``moe_ffn_fwd`` twice at each of its 4 MoE
+      layers per step; the drop share; decode step 1 against a prefill one
+      token longer within ``JAMBA_REL_L2`` on a no-drop copy with
+      ``JAMBA_NO_DROP_PROMPT`` prompt tokens;
+   f. Llama-3.2-Vision-11B whole over 1,664 stub image tokens, each
+      period's gate at ``VISION_GATE``: ``flash_fwd`` at its 32
+      self-attention and 8 cross-attention layers in the prefill and at
+      the 8 cross layers of each decode step; decode step 1 against a
+      longer prefill with the same image within ``VISION_REL_L2``; a
+      second image must move decode step 1's logits by more than
+      ``VISION_LIVE_FLOOR``;
+   g. Seamless-M4T-large-v2 whole over 2,048 stub frames: ``flash_fwd``
+      at its 24 encoder, 24 self and 24 cross layers in the prefill, the
+      encoder again in ``prime_memory`` and each cross layer of each
+      decode step; decode step 1 against a longer prefill with the same
+      frames within ``SEAMLESS_REL_L2``;
 6. train Qwen3-1.7B at full width and depth through
    ``repro_torch.launch.train`` (``remat="full"``, SyntheticLM seed 0, its
    first batch at every step (``RepeatedBatch``), ``TRAIN_BATCH``
@@ -147,9 +177,16 @@ Phases, each of which must pass:
    bound at any shape (a share over 100% means a wrong count).  Phase 1
    times each at its mid sizes as well.  Each time is the median of calls timed one by
    one behind a sleep on the card (``PREFILL_CYCLES``), so it measures
-   the card and not the host.
+   the card and not the host;
+8. run the two examples on the card through their ``main(argv)``:
+   ``repro_torch.examples.train_early_termination`` (``EXAMPLE_TRAIN_ARGS``:
+   the 100m preset) and ``repro_torch.examples.cluster_schedule``
+   (``EXAMPLE_CLUSTER_ARGS``; its pool holds Mamba2, Mixtral and Jamba):
+   every job a success or terminated, positive walls, each job's
+   wall-clock sojourn logged, and every model kernel launched.
 
-Phases 3, 4, 4b, each serving run of 5 and the training run of 6 set every
+Phases 3, 4, 4b, each serving run of 5, the training run of 6 and each
+example of 8 set every
 launch count to 0 just before they drive their path and read the counts
 just after: every kernel of the path must have launched.
 
@@ -158,7 +195,9 @@ says which term won (``operations``, ``integer`` or ``bytes``).
 
 It prints the study's measured numbers as one JSON line
 (``{"numerical_study": ...}``, tied to no kernel; the projections are only
-in its ``[study]`` log line), the kernel report as one JSON line, the card's
+in its ``[study]`` log line), the new families' and the examples' numbers
+as another (``{"families": ..., "examples": ...}``), the kernel report as
+one JSON line, the card's
 name and power limit from ``nvidia-smi``, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or when a phase fails, it exits non-zero and prints no
@@ -318,6 +357,44 @@ MIXTRAL_LAYERS = 12
 #: L2, set before the first reading: one layer adds less rounding than 12,
 #: and the router's near-ties move a request's logits as in Mixtral.
 KIMI_LAYERS, KIMI_PEAK_GB, KIMI_NO_DROP_PROMPT, KIMI_REL_L2 = 1, 70.0, 128, 0.15
+#: Jamba-v0.1 on one card (phase 5e): JAMBA_LAYERS of its 32 layers, one
+#: whole period (1 attention and 7 Mamba layers, 4 MoE and 4 dense FFNs) at
+#: full width, 13.3e9 parameters, 26.5 GB of bf16 weights.  Its Mamba scan
+#: runs at JAMBA_SSD_SHAPE (B, H, G, S, N, P, chunk) in the prefill.  Decode
+#: step 1 against a prefill one token longer runs on a no-drop copy
+#: (capacity factor E / k = 8) with JAMBA_NO_DROP_PROMPT prompt tokens: a
+#: prompt shorter than one 256-step chunk, and the longer one a whole chunk,
+#: as the scan requires.  Its bar, set before the first reading: on the CPU
+#: a copy narrowed to d_model 512 reads 1.6e-2 in bf16; the full width adds
+#: roundings as Qwen3-8B's 36 layers do (4.5e-2 on the card) and the
+#: router's near-ties move a request as in Mixtral, so Mixtral's 0.15.  A
+#: wrong cache slot, conv tail or state reads about 1.4.
+JAMBA, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+JAMBA_SSD_SHAPE = (SERVE_BATCH, 128, 1, SERVE_PROMPT, 16, 64, 256)
+JAMBA_NO_DROP_PROMPT, JAMBA_REL_L2 = 255, 0.15
+#: Llama-3.2-Vision-11B, the whole model (phase 5f), over the stub's 1,664
+#: image tokens.  Every period's cross-attention gate is set to VISION_GATE
+#: after init (the init's 0 makes the cross blocks add exactly nothing).
+#: Decode step 1 against a prefill one token longer with the same image:
+#: bar 0.1, as Qwen3-8B's (40 layers here against 36; the cross attention
+#: runs through flash_fwd on both sides); a narrowed copy (d_model 1024, 10
+#: layers) reads 1.3e-2 on the CPU.  The cross path is live when decode step
+#: 1 at VISION_LIVE_PROMPT against a second image's memory moves the logits
+#: by more than VISION_LIVE_FLOOR relative L2: that narrowed copy moves them
+#: by 4.3e-2 at 5 layers and 1.8e-2 at 10, a zero gate or an ignored memory
+#: by exactly 0; so 1e-3, set before the first reading.
+VISION, VISION_IMAGE_TOKENS = "llama-3.2-vision-11b", 1664
+VISION_GATE, VISION_REL_L2, VISION_LIVE_PROMPT, VISION_LIVE_FLOOR = 1.0, 0.1, 256, 1e-3
+#: Seamless-M4T-large-v2, the whole model (phase 5g), its frames tracking
+#: the prompt (frontend_frames = SERVE_PROMPT).  Decode step 1 against a
+#: prefill one token longer with the same frames: bar 0.1, as Qwen3-8B's
+#: (24 decoder layers); a narrowed copy (d_model 512, 6 + 6 layers) reads
+#: 1.4e-2 on the CPU.
+SEAMLESS, SEAMLESS_REL_L2 = "seamless-m4t-large-v2", 0.1
+#: Phase 8, the examples on the card, through their main(argv).
+EXAMPLE_TRAIN_ARGS = ["--preset", "100m", "--stages", "3", "--steps-per-stage", "20"]
+EXAMPLE_CLUSTER_ARGS = ["--jobs", "6", "--servers", "2", "--stages", "3",
+                        "--steps-per-stage", "3"]
 #: The group of evaluate_many past the int64 outcome count: 80 two-stage
 #: jobs, streamed with 2**20 samples.
 LARGE_GROUP, LARGE_GROUP_SAMPLES = 80, 1 << 20
@@ -334,8 +411,8 @@ TABLE_STUDY = ((1,), (3,))
 #: every combination simulated on each of DES_SERVERS servers.
 DES_GROUPS, DES_JOBS, DES_MAX_STAGES, DES_MIN_COMBOS, DES_SERVERS = 3, 6, 3, 64, (1, 2, 3)
 #: Its online study: the whole synthetic trace (TRACE.n_jobs, seed 13, as
-#: the study's table_trace makes it) on these server counts.
-TRACE_SERVERS = (5, 100)
+#: the study's table_trace makes it), one policy on one server count.
+TRACE_SERVERS, TRACE_POLICY = 5, "rank"
 #: The training phase: Qwen3-1.7B at full width and depth at train_4k's
 #: 4,096 tokens, its global batch of 256 sequences cut to 4 a step, as 2
 #: micro-batches of 2; 9 optimizer steps, the first the warm-up, the
@@ -707,6 +784,7 @@ def phase_kernels(dev, report) -> None:
             r["phase1_plain_ms"], _ = cuda_ms(lambda: plain(*args, **kwargs), 1)
             log(f"  kernel {r['phase1_ms']:.3f} ms, plain {r['phase1_plain_ms']:.3f} ms")
 
+    phase_new_regimes(dev, report)
     rng = np.random.default_rng(20)
     jobs = generate_workload(rng, 20)
     rank = policies.rank_order(jobs)
@@ -1040,9 +1118,12 @@ def flash_inputs(dev, b, hq, hkv, sq, skv, d, seed=0):
             for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
 
 
-def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
+def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10, twice=False,
+                phase1=True) -> dict:
     """``flash_fwd`` against its plain version on bf16 inputs of ``shape``
-    (B, Hq, Hkv, Sq, Skv, D, causal, window); returns the timings asked for."""
+    (B, Hq, Hkv, Sq, Skv, D, causal, window), with ``twice`` a second call
+    bitwise equal to the first; returns the timings asked for, which
+    become the kernel's phase-1 time if it has none and ``phase1``."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -1058,6 +1139,11 @@ def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
     else:
         o, lse = FK.flash_fwd(q, k, v, **kw)
         o_p, lse_p = FK.flash_fwd_torch(q, k, v, **kw)
+    if twice:
+        o2, lse2 = FK.flash_fwd(q, k, v, **kw)
+        require(bool(torch.equal(o, o2)) and bool(torch.equal(lse, lse2)),
+                f"flash_fwd {shape}: a second call differs from the first")
+        del o2, lse2
     torch.cuda.synchronize()
     require(bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all()),
             f"flash_fwd {shape}: non-finite output")
@@ -1071,7 +1157,7 @@ def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10) -> dict:
     require(err_o <= FLASH_O_ATOL, f"flash_fwd {shape}: O err {err_o:.3e} > {FLASH_O_ATOL}")
     require(err_lse <= FLASH_LSE_ATOL,
             f"flash_fwd {shape}: LSE err {err_lse:.3e} > {FLASH_LSE_ATOL}")
-    if time_it and "phase1_ms" not in r:
+    if time_it and phase1 and "phase1_ms" not in r:
         r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
         log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
     return out
@@ -1216,10 +1302,11 @@ def ssd_inputs(dev, b, h, g, s, n, p, seed=0):
     return x, dt, dt * a[None, :, None], bm, cm
 
 
-def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
+def check_ssd(dev, report, shape, time_it=False, reps=10, phase1=True) -> dict:
     """``ssd_fwd`` against its plain version on inputs of ``shape`` (B, H,
     G, S, N, P, chunk), and a second call bitwise equal to the first (no
-    sum is split across CTAs); returns the timings asked for."""
+    sum is split across CTAs); returns the timings asked for, which
+    become the kernel's phase-1 time if it has none and ``phase1``."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -1251,7 +1338,7 @@ def check_ssd(dev, report, shape, time_it=False, reps=10) -> dict:
     require(err_y <= SK.SSD_REL_L2, f"ssd_fwd {shape}: y rel L2 {err_y:.3e} > {SK.SSD_REL_L2}")
     require(err_st <= SK.SSD_STATE_REL,
             f"ssd_fwd {shape}: state rel L2 {err_st:.3e} > {SK.SSD_STATE_REL}")
-    if time_it and "phase1_ms" not in r:
+    if time_it and phase1 and "phase1_ms" not in r:
         r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
         log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
     return out
@@ -1290,10 +1377,11 @@ def moe_plain(x, wg, wu, wd):
                                            wd[i:i + step]) for i in range(0, e, step)])
 
 
-def check_moe(dev, report, shape, time_it=False, reps=3, args=None) -> dict:
+def check_moe(dev, report, shape, time_it=False, reps=3, args=None, phase1=True) -> dict:
     """``moe_ffn_fwd`` against its plain version on inputs of ``shape`` (E,
     R, Dm, Dff), and a second call bitwise equal to the first; returns the
-    timings asked for."""
+    timings asked for, which become the kernel's phase-1 time if it has
+    none and ``phase1``."""
     import torch
 
     from repro_torch.kernels.moe_gemm import kernel as MK
@@ -1318,10 +1406,92 @@ def check_moe(dev, report, shape, time_it=False, reps=3, args=None) -> dict:
     log(f"[kernel vs plain] moe_ffn_fwd (E, R, Dm, Dff)={shape}: rel L2 {err:.3e}, max abs "
         f"{float((o.float() - o_p.float()).abs().max()):.3e}")
     require(err <= MOE_REL_L2, f"moe_ffn_fwd {shape}: rel L2 {err:.3e} > {MOE_REL_L2}")
-    if time_it and "phase1_ms" not in r:
+    if time_it and phase1 and "phase1_ms" not in r:
         r.update(phase1_shape=str(shape), phase1_ms=out["ms"], phase1_plain_ms=out["plain_ms"])
         log(f"  kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
     return out
+
+
+def regime_row(shape, t: dict, bound: tuple[float, str], library_ms=None) -> dict:
+    """One timed shape of a new regime: the kernel's and the plain version's
+    medians (``t``), the bound (ms, by) and the library yardstick."""
+    return dict(shape=str(shape), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
+
+
+def phase_new_regimes(dev, report) -> None:
+    """Phase 1, first: the kernel regimes the hybrid, vlm and encdec
+    families bring, each against its plain version with a second call
+    bitwise equal: ``flash_fwd`` with one query row and with Sq != Skv
+    (the vision model's cross attention over its 1,664 image tokens, D =
+    128, in decode and prefill), bidirectional at Sq = Skv = 2,048, D = 64
+    (the Seamless encoder) and one query row there (its decode cross
+    attention), a ragged few-row case; the backward at that few-row case;
+    ``ssd_fwd`` at Jamba's prefill (N = 16, P = 64, 128 heads, one group,
+    chunk 256) and a prompt shorter than one chunk; ``moe_ffn_fwd`` at
+    Jamba's prefill and decode shapes.  The prefill-sized shapes are timed
+    beside their bound (and SDPA for the attention), into each kernel's
+    ``regimes``."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for shape, time_it in (((SERVE_BATCH, 32, 8, 1, VISION_IMAGE_TOKENS, 128, False, None), False),
+                           ((SERVE_BATCH, 32, 8, SERVE_PROMPT, VISION_IMAGE_TOKENS, 128, False,
+                             None), True),
+                           ((SERVE_BATCH, 16, 16, SERVE_PROMPT, SERVE_PROMPT, 64, False, None),
+                            True),
+                           ((SERVE_BATCH, 16, 16, 1, SERVE_PROMPT, 64, False, None), False),
+                           ((1, 8, 2, 5, 300, 128, False, None), False)):
+        b, hq, hkv, sq, skv, d, causal, _ = shape
+        q, k, v = flash_inputs(dev, b, hq, hkv, sq, skv, d, seed=3)
+        t = check_flash(dev, report, shape, time_it, qkv=(q, k, v), twice=True, phase1=False)
+        if time_it:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=False,  # noqa: E731
+                                                          enable_gqa=True)
+            cuda_ms(sdpa, 2)  # warm up
+            library_ms, _ = cuda_ms(sdpa, 10)
+            io_bytes = tensor_bytes((q, k, v)) + q.numel() * q.element_size() + b * hq * sq * 4
+            row = regime_row(shape, t, bound_ms(flash_flops(b, hq, sq, skv, d, causal),
+                                                io_bytes, 0, peak=BF16_FLOPS), library_ms)
+            rows.append(row)
+            log(f"[regime] flash_fwd {shape}: {t['ms']:.3f} ms, median of 10, plain "
+                f"{t['plain_ms']:.1f} ms, SDPA {library_ms:.3f} ms; bound {row['bound_ms']:.4f} "
+                f"ms ({row['bound_by']}): {row['bound_ms'] / t['ms']:.2%} of it")
+        del q, k, v
+    report["flash_fwd"]["regimes"] = rows
+    check_flash_bwd(dev, report, (1, 8, 2, 5, 300, 128, False, None))
+
+    rows = []
+    for shape, time_it in ((JAMBA_SSD_SHAPE, True), ((*JAMBA_SSD_SHAPE[:3], 255,
+                                                       *JAMBA_SSD_SHAPE[4:]), False)):
+        t = check_ssd(dev, report, shape, time_it, phase1=False)
+        if time_it:
+            row = regime_row(shape, t, ssd_bound(ssd_work(*shape)))
+            rows.append(row)
+            log(f"[regime] ssd_fwd {shape}: {t['ms']:.3f} ms, median of 10, plain "
+                f"{t['plain_ms']:.1f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}): "
+                f"{row['bound_ms'] / t['ms']:.2%} of it")
+    report["ssd_fwd"]["regimes"] = rows
+
+    rows = []
+    prefill, decode = moe_serving_shapes(JAMBA)
+    args = moe_inputs(dev, *prefill, seed=5)
+    for shape in (prefill, decode):
+        e, r, dm, dff = shape
+        if shape == decode:
+            args = (args[0][:, :r].contiguous(), *args[1:])
+        t = check_moe(dev, report, shape, time_it=shape == prefill, args=args, phase1=False)
+        if shape == prefill:
+            row = regime_row(shape, t, bound_ms(6.0 * e * r * dm * dff, tensor_bytes(args),
+                                                e * r * dm * 2, peak=BF16_FLOPS))
+            rows.append(row)
+            log(f"[regime] moe_ffn_fwd {shape}: {t['ms']:.3f} ms, median of 3, plain "
+                f"{t['plain_ms']:.1f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}): "
+                f"{row['bound_ms'] / t['ms']:.2%} of it")
+    report["moe_ffn_fwd"]["regimes"] = rows
+    del args
+    torch.cuda.empty_cache()
 
 
 def phase_worked_example() -> None:
@@ -1719,60 +1889,91 @@ def phase_study() -> dict:
         f"SR and SERPT, W = {DES_SERVERS}: max rel err {des_worst:.3e} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # the online study over the whole synthetic trace (host code by design)
+    # the online study over the whole synthetic trace (host code by design):
+    # one policy on one server count
     t0 = time.perf_counter()
     trace = synthesize_trace(np.random.default_rng(13), n_jobs=TRACE.n_jobs,
                              duration_days=TRACE.duration_days)
     events = len(trace) + sum(j.outcome_stage + 1 for j in trace)
     log(f"[study] synthesize_trace: {len(trace)} jobs in {time.perf_counter() - t0:.2f} s; "
         f"{events} heap events a run (each arrival and each served stage)")
-    online = []
-    for w in TRACE_SERVERS:
-        for policy in TRACE.policies:
-            t0 = time.perf_counter()
-            res = simulator.simulate(trace, w, policy=policy, rng=np.random.default_rng(17))
-            secs = time.perf_counter() - t0
-            require(res.n_jobs == TRACE.n_jobs and math.isfinite(res.mean_sojourn_successful)
-                    and res.n_success > 0, f"trace W={w} {policy}: {res}")
-            online.append({"servers": w, "policy": policy, "wall_s": secs,
-                           "events_per_s": events / secs,
-                           "mean_sojourn_successful": res.mean_sojourn_successful,
-                           "n_success": res.n_success})
-            log(f"[study] trace W={w} {policy}: {secs:.3f} s, {events / secs:.0f} events/s, "
-                f"mean sojourn of successful jobs {res.mean_sojourn_successful!r}, "
-                f"n_success {res.n_success}")
+    t0 = time.perf_counter()
+    res = simulator.simulate(trace, TRACE_SERVERS, policy=TRACE_POLICY,
+                             rng=np.random.default_rng(17))
+    secs = time.perf_counter() - t0
+    require(res.n_jobs == TRACE.n_jobs and math.isfinite(res.mean_sojourn_successful)
+            and res.n_success > 0, f"trace W={TRACE_SERVERS} {TRACE_POLICY}: {res}")
+    online = [{"servers": TRACE_SERVERS, "policy": TRACE_POLICY, "wall_s": secs,
+               "events_per_s": events / secs,
+               "mean_sojourn_successful": res.mean_sojourn_successful,
+               "n_success": res.n_success}]
+    log(f"[study] trace W={TRACE_SERVERS} {TRACE_POLICY}: {secs:.3f} s, {events / secs:.0f} "
+        f"events/s, mean sojourn of successful jobs {res.mean_sojourn_successful!r}, "
+        f"n_success {res.n_success}")
+    eval_tables = phase_eval_tables(study)
     return {"launches": counts, "by_n": by_n, "max_rel_err": worst,
             "n8_device_ms": device_ms, "n8_profiled_wall_s": box["s"], "n8_busy_share": busy,
-            "des_max_rel_err": des_worst, "trace": online}
+            "des_max_rel_err": des_worst, "trace": online, "eval_tables": eval_tables}
 
 
-def serve_model(dev, cfg, warm_len: int = 64) -> dict:
-    """Random weights for ``cfg`` from the seed, a short warm-up (cuBLAS,
-    the kernels), then one timed ``generate`` of SERVE_BATCH prompts of
-    SERVE_PROMPT tokens and SERVE_STEPS decode steps through
+def phase_eval_tables(study) -> dict:
+    """Phase 4b, last: the seed (materialised) designs against the fused
+    kernels, ``table_eval_perf``, ``table_eval_dynamic`` and
+    ``table_eval_mc`` through ``repro_torch.launch.study`` on the card at
+    the reference's CI sizes (K = 2**21; K = 2**27 with 2**23 streamed and
+    2**21 materialised samples), with the reference's own checks (fused
+    against seed within 1e-9, the streamed estimate within 3 sigma, the
+    streamed throughput at least twice the materialised one) and the launch
+    counts around them."""
+    import tempfile
+
+    out = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("eval_perf", "eval_dynamic", "eval_mc"):
+            t0 = time.perf_counter()
+            out[name] = study.TABLES[name](out=tmp)
+            log(f"[study] table_{name} on the card in {time.perf_counter() - t0:.1f} s: "
+                f"{json.dumps(out[name])}")
+    counts = read_counts()
+    log(f"[study] table_eval_* launches: {counts}")
+    for name in ("sojourn_enum", "sojourn_mc", "sojourn_outcomes", "dynamic_sojourn_enum"):
+        require(counts[name] > 0, f"the table_eval_* tables launched no {name}")
+    return {"rows": out, "launches": counts}
+
+
+def serve_model(dev, cfg, warm_len: int = 64, setup=None) -> dict:
+    """Random weights for ``cfg`` from the seed (then ``setup(params)``, if
+    given), the family's extras from the frontend stubs, a short warm-up
+    (cuBLAS, the kernels), then one timed ``generate`` of SERVE_BATCH
+    prompts of SERVE_PROMPT tokens and SERVE_STEPS decode steps through
     ``repro_torch.launch.serve``, with the launch counts set to 0 just
     before it and read just after."""
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import make_extras
     from repro_torch.models.init import tree_bytes
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = T.init_params(cfg, gen, dev)
+    if setup is not None:
+        setup(params)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
                             device=dev)
+    extras = make_extras(gen, cfg, SERVE_BATCH)
     torch.cuda.synchronize()
     tag = f"[serving {cfg.name}]"
     log(f"{tag} {cfg.n_layers} layers, {cfg.param_count() / 1e9:.4g} B parameters, "
         f"{tree_bytes(params) / 1e9:.4g} GB of weights made in {time.perf_counter() - t0:.1f} s")
     plan = serve.ServePlan(cfg=cfg, max_len=SERVE_PROMPT + SERVE_STEPS + 1, device=dev)
-    serve.generate(plan, params, prompts[:, :warm_len], gen_len=2)
+    serve.generate(plan, params, prompts[:, :warm_len], gen_len=2, extras=extras)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1)
+    res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1, extras=extras)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     free = torch.cuda.get_device_properties(dev).total_memory - torch.cuda.max_memory_reserved(dev)
@@ -1788,8 +1989,8 @@ def serve_model(dev, cfg, warm_len: int = 64) -> dict:
     require(int(res.tokens.max()) < cfg.vocab_size and int(res.tokens.min()) >= 0,
             "a token outside the vocabulary")
     require(bool(torch.isfinite(res.first_decode_logits).all()), "non-finite decode logits")
-    return {"params": params, "prompts": prompts, "plan": plan, "res": res, "counts": counts,
-            "tag": tag}
+    return {"params": params, "prompts": prompts, "extras": extras, "plan": plan, "res": res,
+            "counts": counts, "tag": tag, "peak_gb": peak / 1e9}
 
 
 def logits_err(tag: str, got, want) -> tuple[float, float]:
@@ -1810,13 +2011,17 @@ def busy_shares(run: dict, top: int = 0) -> None:
 
     plan, params, prompts, res = run["plan"], run["params"], run["prompts"], run["res"]
     prefill, decode = serve.make_prefill_fn(plan), serve.make_decode_fn(plan)
+    batch = {"tokens": prompts, **run["extras"]}
     out = {}
-    prefill_dev = profiled_device_ms(
-        lambda: out.update(cache=prefill(params, {"tokens": prompts})[1]), top,
-        f"{run['tag']} prefill kernel")
+
+    def prefill_and_prime():
+        out["cache"] = prefill(params, batch)[1]
+        out["memory"] = serve.make_prime_fn(plan)(params, batch)
+
+    prefill_dev = profiled_device_ms(prefill_and_prime, top, f"{run['tag']} prefill kernel")
     steps = 3
     decode_dev = profiled_device_ms(lambda: [
-        decode(params, res.tokens[:, i : i + 1], out["cache"], SERVE_PROMPT + i)
+        decode(params, res.tokens[:, i : i + 1], out["cache"], SERVE_PROMPT + i, out["memory"])
         for i in range(steps)], top, f"{run['tag']} {steps} decode steps' kernel")
     mean_decode_ms = sum(res.decode_s) / len(res.decode_s) * 1e3
     for name, dev_ms, wall_ms in (("prefill", prefill_dev, res.prefill_s * 1e3),
@@ -2077,6 +2282,201 @@ def phase_serving_kimi(dev) -> dict:
     release(run)
     return {"launches": counts, "dropped_share": dropped / pairs, "peak_gb": peak_gb,
             "moe_shapes": moe_shapes}
+
+
+def longer_prefill_err(run: dict, tag: str) -> float:
+    """Relative L2 error of the timed run's decode step 1 against the last
+    logits of a prefill of the prompts plus their first new token, with the
+    same extras."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    res = run["res"]
+    longer = torch.cat([run["prompts"], res.tokens[:, :1]], dim=1)
+    want = serve.make_prefill_fn(run["plan"])(
+        run["params"], {"tokens": longer, **run["extras"]})[0][:, -1].clone()
+    rel, _ = logits_err(f"{run['tag']} {tag}: decode step 1 vs prefill of "
+                        f"{longer.shape[1]} tokens", res.first_decode_logits, want)
+    return rel
+
+
+def require_launches(tag: str, counts: dict, want: dict) -> None:
+    for name, n in want.items():
+        require(counts[name] == n, f"{tag} {name} launched {counts[name]} times, not {n}")
+
+
+def phase_serving_jamba(dev) -> dict:
+    """Phase 5e: Jamba at full width and JAMBA_LAYERS layers (one period);
+    the capacity's drop share; decode step 1 against a longer prefill on a
+    copy of the config whose capacity drops nothing."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(JAMBA, n_layers=JAMBA_LAYERS)
+    run, moe_shapes = recording_moe_shapes(lambda: serve_model(dev, cfg))
+    attn_layers = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    # the prefill runs flash_fwd at each attention layer and ssd_fwd at each
+    # Mamba layer; decode attends with the plain oracle and runs the Mamba
+    # recurrence; moe_ffn_fwd twice at each MoE layer of the prefill and of
+    # each decode step
+    require_launches(run["tag"], run["counts"], {
+        "flash_fwd": attn_layers, "ssd_fwd": cfg.n_layers - attn_layers,
+        "moe_ffn_fwd": 2 * moe_layers * (SERVE_STEPS + 1)})
+    require(set(moe_serving_shapes(JAMBA)) <= moe_shapes,
+            f"moe_ffn_fwd shapes {sorted(moe_shapes)} lack phase 1's {moe_serving_shapes(JAMBA)}")
+    pairs = SERVE_BATCH * SERVE_PROMPT * cfg.top_k * moe_layers
+    moe_calls, dropped = count_dropped(run["plan"], run["params"], run["prompts"])
+    require(moe_calls == moe_layers, f"{moe_calls} MoE layer calls in a prefill")
+    log(f"{run['tag']} prefill routing: dropped {dropped} of {pairs} (token, expert) pairs, "
+        f"share {dropped / pairs:.4%}")
+    busy_shares(run, top=6)
+    # decode vs prefill where no token can drop: capacity_factor = E / k
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    prompt = run["prompts"][:, :JAMBA_NO_DROP_PROMPT]
+    plan = serve.ServePlan(cfg=no_drop, max_len=prompt.shape[1] + 2, device=dev)
+    logits, cache = serve.make_prefill_fn(plan)(run["params"], {"tokens": prompt})
+    tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
+    del logits
+    got, _ = serve.make_decode_fn(plan)(run["params"], tok, cache, prompt.shape[1])
+    longer = torch.cat([prompt, tok], dim=1)
+    want = serve.make_prefill_fn(plan)(run["params"], {"tokens": longer})[0][:, -1].clone()
+    rel, _ = logits_err(f"{run['tag']} no-drop copy: decode step 1 vs prefill of "
+                        f"{longer.shape[1]} tokens", got[:, 0], want)
+    require(bool(torch.isfinite(got).all()), "non-finite decode logits")
+    require(rel <= JAMBA_REL_L2, f"Jamba decode vs prefill: rel L2 {rel:.3e} > {JAMBA_REL_L2}")
+    out = {"launches": run["counts"], "dropped_share": dropped / pairs, "moe_shapes": moe_shapes,
+           "peak_gb": run["peak_gb"], "decode_vs_prefill": rel}
+    del got, want, cache
+    release(run)
+    return out
+
+
+def phase_serving_vision(dev) -> dict:
+    """Phase 5f: Llama-3.2-Vision-11B, the whole model, each period's gate
+    at VISION_GATE; decode step 1 against a longer prefill with the same
+    image; the cross path live: a second image's memory moves decode step
+    1's logits."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.frontends import make_extras
+
+    cfg = get_config(VISION)
+    require(cfg.num_image_tokens == VISION_IMAGE_TOKENS, f"{cfg.num_image_tokens} image tokens")
+    run = serve_model(dev, cfg, setup=lambda p: p["periods"]["pos0"]["attn"]["gate"].fill_(
+        VISION_GATE))
+    cross = cfg.n_layers // cfg.cross_attn_period
+    # flash_fwd at each self-attention and each cross-attention layer of the
+    # prefill, none in prime_memory (projections only), and at each cross
+    # layer of each decode step (one query row over the image tokens)
+    require_launches(run["tag"], run["counts"], {
+        "flash_fwd": cfg.n_layers + cross * SERVE_STEPS, "ssd_fwd": 0, "moe_ffn_fwd": 0})
+    rel = longer_prefill_err(run, "same image")
+    require(rel <= VISION_REL_L2, f"vision decode vs prefill: rel L2 {rel:.3e} > {VISION_REL_L2}")
+    # the cross path is live: the same cache, a second image's memory
+    plan, params = run["plan"], run["params"]
+    prompt = run["prompts"][:, :VISION_LIVE_PROMPT]
+    other = make_extras(torch.Generator(device=dev).manual_seed(SEED + 1), cfg, SERVE_BATCH)
+    logits, cache = serve.make_prefill_fn(plan)(params, {"tokens": prompt, **run["extras"]})
+    tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
+    del logits
+    decode, prime = serve.make_decode_fn(plan), serve.make_prime_fn(plan)
+    first, _ = decode(params, tok, cache, prompt.shape[1], prime(params, run["extras"]))
+    second, _ = decode(params, tok, cache, prompt.shape[1], prime(params, other))
+    moved = rel_l2(second[:, 0], first[:, 0])
+    log(f"{run['tag']} decode step 1 at {prompt.shape[1]} tokens with a second image: logits "
+        f"move by {moved:.3e} relative L2 (floor {VISION_LIVE_FLOOR}, gate {VISION_GATE})")
+    require(moved > VISION_LIVE_FLOOR, f"the cross path moves the logits by {moved:.3e}, not "
+            f"more than {VISION_LIVE_FLOOR}")
+    busy_shares(run)
+    out = {"launches": run["counts"], "peak_gb": run["peak_gb"], "decode_vs_prefill": rel,
+           "second_image_rel_l2": moved}
+    del first, second, cache
+    release(run)
+    return out
+
+
+def phase_serving_seamless(dev) -> dict:
+    """Phase 5g: Seamless-M4T-large-v2, the whole model, over SERVE_PROMPT
+    stub frames; decode step 1 against a longer prefill with the same
+    frames."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(SEAMLESS), frontend_frames=SERVE_PROMPT)
+    run = serve_model(dev, cfg)
+    # the prefill runs flash_fwd at each encoder layer, each decoder
+    # self-attention and each cross attention; prime_memory runs the encoder
+    # again, as the reference's does; each decode step runs it at each
+    # decoder layer's cross attention (one query row over the frames)
+    require_launches(run["tag"], run["counts"], {
+        "flash_fwd": 2 * cfg.n_enc_layers + 2 * cfg.n_layers + cfg.n_layers * SERVE_STEPS,
+        "ssd_fwd": 0, "moe_ffn_fwd": 0})
+    rel = longer_prefill_err(run, "same frames")
+    require(rel <= SEAMLESS_REL_L2,
+            f"Seamless decode vs prefill: rel L2 {rel:.3e} > {SEAMLESS_REL_L2}")
+    busy_shares(run)
+    out = {"launches": run["counts"], "peak_gb": run["peak_gb"], "decode_vs_prefill": rel}
+    release(run)
+    return out
+
+
+def phase_examples() -> dict:
+    """Phase 8: the two examples on the card through their ``main(argv)``,
+    the launch counts around each: every attention kernel trains in the
+    first, every model kernel runs in the second (whose pool holds Mamba2,
+    Mixtral and Jamba); each job ends as a success or terminated, and the
+    walls are positive."""
+    import tempfile
+
+    from repro_torch.examples import cluster_schedule, train_early_termination
+
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = train_early_termination.main(EXAMPLE_TRAIN_ARGS)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[examples] train_early_termination {' '.join(EXAMPLE_TRAIN_ARGS)}: stage losses "
+        f"{losses} in {secs:.1f} s; launches {counts}")
+    require(len(losses) >= 1 and all(math.isfinite(x) for x in losses) and secs > 0,
+            f"train_early_termination: {losses}")
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        require(counts[name] > 0, f"train_early_termination launched no {name}")
+    out["train"] = {"stage_losses": losses, "wall_s": secs, "launches": counts}
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as cache_dir:
+        os.environ["REPRO_CACHE_DIR"] = cache_dir
+        try:
+            t0 = time.perf_counter()
+            res, jobs = cluster_schedule.main(EXAMPLE_CLUSTER_ARGS)
+            secs = time.perf_counter() - t0
+        finally:
+            del os.environ["REPRO_CACHE_DIR"]
+    counts = read_counts()
+    sojourns = {j.name: j.completed - j.spec.arrival for j in jobs}
+    log(f"[examples] cluster_schedule {' '.join(EXAMPLE_CLUSTER_ARGS)} in {secs:.1f} s: "
+        f"makespan {res.makespan:.3f} s; wall-clock sojourn of each job (s): "
+        + ", ".join(f"{k} {v:.3f} ({'SUCCESS' if j.success else f'terminated@{j.stage - 1}'})"
+                    for j, (k, v) in zip(jobs, sojourns.items())) + f"; launches {counts}")
+    for j in jobs:
+        require(j.success or j.stage > 0, f"{j.name} neither succeeded nor was terminated")
+        require(sojourns[j.name] > 0, f"{j.name}: sojourn {sojourns[j.name]!r}")
+    require(res.makespan > 0, f"makespan {res.makespan!r}")
+    for name in ("flash_fwd", "flash_dkv", "flash_dq", "ssd_fwd", "moe_ffn_fwd"):
+        require(counts[name] > 0, f"cluster_schedule launched no {name}")
+    out["cluster"] = {"sojourn_s": sojourns, "makespan_s": res.makespan, "wall_s": secs,
+                      "launches": counts}
+    return out
 
 
 def tree_names(tree, prefix: str = "") -> list[str]:
@@ -2536,7 +2936,7 @@ def check_shares(kernels: list[dict]) -> None:
     for k in kernels:
         pairs = [("", k["bound_ms"], k["ms"])]
         pairs += [(f" {row['shape']}", row["bound_ms"], row["ms"])
-                  for row in k.get("more_shapes", [])]
+                  for row in k.get("more_shapes", []) + k.get("regimes", [])]
         for prefix in ("decode", "large_group"):
             if f"{prefix}_ms" in k:
                 pairs.append((f" {prefix}", k[f"{prefix}_bound_ms"], k[f"{prefix}_ms"]))
@@ -2579,36 +2979,48 @@ def main() -> int:
     mamba = phase_serving_mamba(dev)
     mixtral = phase_serving_mixtral(dev)
     kimi = phase_serving_kimi(dev)
+    jamba = phase_serving_jamba(dev)
+    vision = phase_serving_vision(dev)
+    seamless = phase_serving_seamless(dev)
     training = phase_training(dev)
     phase_timing(dev, main_path["workloads"], outcomes_path, large_group,
                  {"mixtral-8x22b": mixtral["moe_shapes"], "kimi-k2-1t-a32b": kimi["moe_shapes"]},
                  report)
+    examples = phase_examples()
     smi = nvidia_smi()
-    flash_by_path = {"qwen3-8b": serving["launches"]["flash_fwd"],
-                     "mixtral-8x22b": mixtral["launches"]["flash_fwd"],
-                     "kimi-k2-1t-a32b": kimi["launches"]["flash_fwd"],
-                     "qwen3-1.7b training": training["launches"]["flash_fwd"]}
-    moe_by_path = {"mixtral-8x22b": mixtral["launches"]["moe_ffn_fwd"],
-                   "kimi-k2-1t-a32b": kimi["launches"]["moe_ffn_fwd"]}
-    report["flash_fwd"]["launches_by_path"] = flash_by_path
-    report["moe_ffn_fwd"]["launches_by_path"] = moe_by_path
+    runs = {"qwen3-8b": serving, "mamba2-1.3b": mamba, "mixtral-8x22b": mixtral,
+            "kimi-k2-1t-a32b": kimi, JAMBA: jamba, VISION: vision, SEAMLESS: seamless,
+            "qwen3-1.7b training": training,
+            "train_early_termination example": examples["train"],
+            "cluster_schedule example": examples["cluster"]}
+
+    def by_path(name):
+        return {path: run["launches"][name] for path, run in runs.items()
+                if run["launches"].get(name)}
+
+    report["flash_fwd"]["launches_by_path"] = by_path("flash_fwd")
+    report["moe_ffn_fwd"]["launches_by_path"] = by_path("moe_ffn_fwd")
+    report["ssd_fwd"]["launches_by_path"] = by_path("ssd_fwd")
+    for name in ("flash_dkv", "flash_dq"):
+        report[name]["launches_by_path"] = by_path(name)
     report["moe_ffn_fwd"]["dropped_share"] = {"mixtral-8x22b": mixtral["dropped_share"],
-                                              "kimi-k2-1t-a32b": kimi["dropped_share"]}
+                                              "kimi-k2-1t-a32b": kimi["dropped_share"],
+                                              JAMBA: jamba["dropped_share"]}
     report["sojourn_enum"]["optimal_cell"] = main_path["optimal_cell"]
+    tables = study["eval_tables"]["launches"]
     sojourn_by_path = {name: main_path["launches"][name] + large_group["launches"][name]
                        for name in ("sojourn_enum", "sojourn_mc", "dynamic_sojourn_enum",
                                     "dynamic_sojourn_mc")}
     for name in ("sojourn_enum", "dynamic_sojourn_enum"):
         report[name]["launches_by_path"] = {"main path": sojourn_by_path[name],
-                                            "numerical study": study["launches"][name]}
-        sojourn_by_path[name] += study["launches"][name]
+                                            "numerical study": study["launches"][name],
+                                            "table_eval_*": tables[name]}
+        sojourn_by_path[name] += study["launches"][name] + tables[name]
+    sojourn_by_path["sojourn_mc"] += tables["sojourn_mc"]
     launches = {**sojourn_by_path, "sojourn_outcomes":
-                outcomes_path["launches"]["sojourn_outcomes"],
-                "flash_fwd": sum(flash_by_path.values()),
-                "flash_dkv": training["launches"]["flash_dkv"],
-                "flash_dq": training["launches"]["flash_dq"],
-                "ssd_fwd": mamba["launches"]["ssd_fwd"],
-                "moe_ffn_fwd": sum(moe_by_path.values())}
+                outcomes_path["launches"]["sojourn_outcomes"] + tables["sojourn_outcomes"],
+                **{name: sum(report[name]["launches_by_path"].values())
+                   for name in ("flash_fwd", "flash_dkv", "flash_dq", "ssd_fwd", "moe_ffn_fwd")}}
     kernels = []
     for name in REPLACES:
         r = report[name]
@@ -2626,7 +3038,7 @@ def main() -> int:
                                        "large_group_bound_ms", "large_group_bound_terms_ms",
                                        "bound_term", "bound_terms_ms", "bound_ms_full_decode",
                                        "bound_ms_cuda_cores", "optimal_shape",
-                                       "optimal_shape_ms", "optimal_cell")
+                                       "optimal_shape_ms", "optimal_cell", "regimes")
                if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
@@ -2634,7 +3046,11 @@ def main() -> int:
     check_shares(kernels)
     log(json.dumps({"numerical_study": {key: study[key] for key in (
         "by_n", "max_rel_err", "n8_device_ms", "n8_profiled_wall_s", "n8_busy_share",
-        "des_max_rel_err", "trace")}}))
+        "des_max_rel_err", "trace", "eval_tables")}}))
+    log(json.dumps({"families": {name: {k: v for k, v in run.items() if k != "moe_shapes"}
+                                 for name, run in ((JAMBA, jamba), (VISION, vision),
+                                                   (SEAMLESS, seamless))},
+                    "examples": examples}))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The counterpart of ``repro/configs/registry.py``.  It knows the same ten
-architecture ids.  The dense, moe and ssm ones are built here; for the
-hybrid, vlm and encdec families :func:`get_config` and :func:`get_smoke`
-raise ``NotImplementedError`` naming the slice of the port (ROADMAP,
-"Port status") that brings them.  ``get_config(arch, **overrides)``
-replaces fields, e.g. ``n_layers`` to cut a model's depth to one card.
+The counterpart of ``repro/configs/registry.py``.  It builds the same ten
+architecture ids.  ``get_config(arch, **overrides)`` replaces fields,
+e.g. ``n_layers`` to cut a model's depth to one card.
 """
 
 from __future__ import annotations
@@ -15,32 +12,24 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "PENDING", "get_config", "get_smoke", "list_archs"]
+__all__ = ["ARCHS", "get_config", "get_smoke", "list_archs"]
 
-#: arch id -> module name under repro_torch.configs (the ported families)
+#: arch id -> module name under repro_torch.configs
 ARCHS = {
     "mixtral-8x22b": "mixtral_8x22b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "mamba2-1.3b": "mamba2_1_3b",
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-8b": "qwen3_8b",
     "granite-3-8b": "granite_3_8b",
     "llama3-8b": "llama3_8b",
-}
-
-_REST = "port slice 8 (the hybrid, vlm and encdec families: period stacks, cross attention)"
-#: arch id -> (family, the ROADMAP slice that brings it)
-PENDING = {
-    "jamba-v0.1-52b": ("hybrid", _REST),
-    "llama-3.2-vision-11b": ("vlm", _REST),
-    "seamless-m4t-large-v2": ("encdec", _REST),
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 
 def _module(arch: str):
-    if arch in PENDING:
-        family, where = PENDING[arch]
-        raise NotImplementedError(f"{arch} ({family} family) is not ported yet: ROADMAP {where}")
     try:
         mod = ARCHS[arch]
     except KeyError:
@@ -59,5 +48,4 @@ def get_smoke(arch: str, **overrides) -> ModelConfig:
 
 
 def list_archs() -> list[str]:
-    """Every architecture id, ported or not (as the reference lists them)."""
-    return sorted([*ARCHS, *PENDING])
+    return sorted(ARCHS)

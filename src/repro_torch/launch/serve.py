@@ -4,21 +4,30 @@ generation, and the ``python -m repro_torch.launch.serve`` entry point.
 The counterpart of ``repro/launch/serve.py`` and
 ``examples/serve_batch.py``.  ``make_prefill_fn(plan)`` gives
 ``(params, batch) -> (logits, cache)``: the prompt's float32 logits over
-the padded vocabulary and the serving cache.  ``make_decode_fn(plan)``
-gives ``(params, token, cache, pos) -> (logits, cache)``: one new token
-against the cache, which it updates IN PLACE (the reference donates the
-cache to get the same effect).  There is no mesh: one device holds the
-weights and the cache (sharding is ROADMAP Queue 1 item 8).
+the padded vocabulary and the serving cache.  ``make_prime_fn(plan)``
+gives ``(params, batch) -> memory``, the static cross-attention K/V that
+the vlm and encdec families decode against (None for the others).
+``make_decode_fn(plan)`` gives ``(params, token, cache, pos, memory=None)
+-> (logits, cache)``: one new token against the cache, which it updates
+IN PLACE (the reference donates the cache to get the same effect).
+There is no mesh: one device holds the weights and the cache (sharding
+is ROADMAP Queue 1 item 5).
 
 Command line (random weights from ``--seed``; the real weights are not
-in the repository)::
+in the repository; the vlm and encdec families' image or frame
+embeddings come from the frontend stubs)::
 
     python -m repro_torch.launch.serve                      # qwen3-8b on the card
     python -m repro_torch.launch.serve --smoke --device cpu # its SMOKE config
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --layers 8
 
 At ``--arch qwen3-8b`` the defaults are 4 requests of 2048 prompt tokens
 and 32 new tokens each (the first from the prefill, 31 decode steps).
 The prefill's logits alone are B x S x 152,064 float32: 5.0 GB there.
+Seamless's frame count follows ``--prompt-len``, as the reference's
+shapes make it.  Jamba at its full 32 layers (51.5e9 parameters, 103 GB
+in bf16) does not fit one 80 GB card: ``--layers N`` cuts the depth
+(8, one period, is 26.5 GB).
 """
 
 from __future__ import annotations
@@ -34,9 +43,15 @@ from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import make_extras
 from repro_torch.models.init import tree_bytes
 
-__all__ = ["ServePlan", "Generation", "make_prefill_fn", "make_decode_fn", "generate", "main"]
+__all__ = ["ServePlan", "Generation", "make_prefill_fn", "make_prime_fn", "make_decode_fn",
+           "generate", "main"]
+
+#: Bytes of one card's memory: a config whose weights alone pass it cannot
+#: be served on one card.
+CARD_BYTES = 80e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,12 +71,22 @@ def make_prefill_fn(plan: ServePlan) -> Callable:
     return prefill_step
 
 
+def make_prime_fn(plan: ServePlan) -> Callable:
+    cfg = plan.cfg
+
+    @torch.inference_mode()
+    def prime(params, batch):
+        return T.prime_memory(params, cfg, batch)
+
+    return prime
+
+
 def make_decode_fn(plan: ServePlan) -> Callable:
     cfg = plan.cfg
 
     @torch.inference_mode()
-    def decode(params, token, cache, pos: int):
-        return T.decode_step(params, token, cache, pos, cfg)
+    def decode(params, token, cache, pos: int, memory=None):
+        return T.decode_step(params, token, cache, pos, cfg, memory)
 
     return decode
 
@@ -70,7 +95,7 @@ def make_decode_fn(plan: ServePlan) -> Callable:
 class Generation:
     tokens: torch.Tensor  # (B, gen_len) greedy tokens, the first from the prefill
     first_decode_logits: torch.Tensor | None  # (B, V) float32 of decode step 1
-    prefill_s: float  # wall seconds of the prefill, device work included
+    prefill_s: float  # wall seconds of the prefill (and prime_memory), device work included
     decode_s: list  # wall seconds of each decode step
     cache_bytes: int
     logits_bytes: int  # of the prefill's logits
@@ -81,19 +106,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(plan: ServePlan, params: dict, prompts: torch.Tensor, gen_len: int) -> Generation:
-    """Prefill ``prompts`` (B, S) and decode greedily: ``gen_len`` new
-    tokens per request, the first from the prefill's last logits and the
-    rest from ``gen_len - 1`` decode steps.  Times are host wall clock
-    around work that ends in a device synchronisation."""
+def generate(plan: ServePlan, params: dict, prompts: torch.Tensor, gen_len: int,
+             extras: dict | None = None) -> Generation:
+    """Prefill ``prompts`` (B, S) with the batch's ``extras``
+    (``image_embeds`` for vlm, ``enc_frames`` for encdec) and decode
+    greedily: ``gen_len`` new tokens per request, the first from the
+    prefill's last logits and the rest from ``gen_len - 1`` decode steps.
+    For vlm and encdec the cross memory is primed once after the prefill,
+    inside its timed wall (it is part of the time to the first token), and
+    every decode step attends to it.  Times are host wall clock around
+    work that ends in a device synchronisation."""
     cfg, dev = plan.cfg, plan.device
     b, s = prompts.shape
     if s + gen_len > plan.max_len:
         raise ValueError(f"prompt {s} + {gen_len} new tokens exceed max_len {plan.max_len}")
     prefill, decode = make_prefill_fn(plan), make_decode_fn(plan)
+    batch = {"tokens": prompts, **(extras or {})}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, batch)
+    memory = make_prime_fn(plan)(params, batch)
     tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -102,7 +134,7 @@ def generate(plan: ServePlan, params: dict, prompts: torch.Tensor, gen_len: int)
     out, decode_s, first = [tok], [], None
     for pos in range(s, s + gen_len - 1):
         t0 = time.perf_counter()
-        lg, cache = decode(params, tok, cache, pos)
+        lg, cache = decode(params, tok, cache, pos, memory)
         tok = lg[:, 0, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
         _sync(dev)
         decode_s.append(time.perf_counter() - t0)
@@ -117,6 +149,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced SMOKE config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers at full width (get_config(arch, n_layers=N))")
     ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' for plain torch")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=None, help="default 2048 (16 with --smoke)")
@@ -124,16 +158,25 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    depth = {"n_layers": args.layers} if args.layers else {}
+    cfg = get_smoke(args.arch, **depth) if args.smoke else get_config(args.arch, **depth)
     prompt_len = args.prompt_len or (16 if args.smoke else 2048)
     gen_len = args.gen_len or (8 if args.smoke else 32)
+    if cfg.family == "encdec":  # the frames track the prompt, as the reference's shapes
+        cfg = dataclasses.replace(cfg, frontend_frames=prompt_len)
+    weight_bytes = cfg.param_count() * cfg.pdtype.itemsize
+    if not args.smoke and weight_bytes > CARD_BYTES:
+        ap.error(f"{cfg.name} at {cfg.n_layers} layers has {cfg.param_count() / 1e9:.4g} B "
+                 f"parameters ({weight_bytes / 1e9:.4g} GB), more than one card holds: cut the "
+                 "depth with --layers")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, dev)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, prompt_len), generator=gen,
                             device=dev)
+    extras = make_extras(gen, cfg, args.batch)
     plan = ServePlan(cfg=cfg, max_len=prompt_len + gen_len, device=dev)
-    res = generate(plan, params, prompts, gen_len)
+    res = generate(plan, params, prompts, gen_len, extras)
 
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     steps = len(res.decode_s)

@@ -9,13 +9,23 @@ the same seeds, the same shared ``rng`` and the same row keys:
   table_stages         -> Table XIV  (stage-count sweep)
   table_trace          -> Tables XVI-XVIII (trace-driven online study)
   table_faults         -> policy robustness under failures and resizes
+  table_eval_perf      -> the seed (materialised) static evaluator vs the fused kernel
+  table_eval_dynamic   -> the same for SR/SERPT on one server
+  table_eval_mc        -> streamed Monte Carlo vs the materialised sample table
 
 The numerical study (Figure 1, Tables IV-XIV) is thousands of
 ``evaluate_many`` calls at N = 3-8 jobs; they run on the CUDA card
 (``sojourn_enum`` for OPTIMAL, RANK and RANDOM, ``dynamic_sojourn_enum``
 for SR and SERPT) unless ``--device cpu`` selects the plain PyTorch
 versions.  The trace and fault studies run the discrete-event engine on
-the host, as the reference does.
+the host, as the reference does.  The three ``table_eval_*`` tables time
+the fused kernels (``sojourn_enum``, ``dynamic_sojourn_enum``,
+``sojourn_mc``) against the seed design's host-built tables reduced by
+plain PyTorch (``sojourn_outcomes`` for the sampled table) on the same
+device, and keep the reference's own checks: fused against seed within
+1e-9, the streamed estimate within 3 sigma of the exact value, and
+(unless ``smoke``) the streamed path at least twice the materialised
+one's throughput.  ``n_jobs`` makes them small for tests.
 
 Default is a CI-friendly scale (fewer trials, a load-matched subsampled
 trace); ``--full`` is paper scale (50,000 trials a (set, N), 109,967
@@ -24,7 +34,7 @@ trace jobs).  Each table prints as markdown and is written to
 ``{"rows": ..., "workload_cache": ...}``::
 
     python -m repro_torch.launch.study --table sojourn          # on the card
-    python -m repro_torch.launch.study --table all --device cpu
+    python -m repro_torch.launch.study --table eval_mc --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -35,13 +45,15 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs.paper_workloads import NUMERICAL, TRACE
-from repro_torch.core import policies
+from repro_torch.core import evaluator, policies
 from repro_torch.core.evaluator import evaluate_many
 from repro_torch.core.jobs import generate_workload
 from repro_torch.core.simulator import simulate
 from repro_torch.core.trace import synthesize_trace
+from repro_torch.device import resolve_device
 
 __all__ = [
     "OUT",
@@ -52,6 +64,9 @@ __all__ = [
     "table_stages",
     "table_trace",
     "table_faults",
+    "table_eval_perf",
+    "table_eval_dynamic",
+    "table_eval_mc",
     "main",
 ]
 
@@ -267,6 +282,244 @@ def table_faults(full: bool = False, out: str = OUT):
 
 
 # ---------------------------------------------------------------------------
+# The fused evaluator against the seed design (BENCH_eval*.json)
+# ---------------------------------------------------------------------------
+
+
+def _median_after_warmup(fn, repeats: int):
+    """(median wall seconds of ``repeats`` calls after one warm-up call,
+    the last call's result)."""
+    ts = []
+    for _ in range(repeats + 1):
+        t0 = time.perf_counter()
+        out = fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts[1:])), out
+
+
+def table_eval_perf(full: bool = False, device=None, out: str = OUT, n_jobs: int = 21):
+    """Seed materialised evaluator vs the fused streaming op.
+
+    The seed path builds the (K, N) outcome/duration/success tables on the
+    host and reduces them with ``evaluator._static_batch`` (plain PyTorch
+    on ``device``); the fused path (``sojourn_enum`` on the card) decodes
+    combinations on the fly and never materialises them.  Timed at K =
+    2**21 (``n_jobs=21``, the seed's exact-eval cap); ``--full`` adds a
+    fused-only row at K = 2**26.
+    """
+    dev = resolve_device(device)
+
+    def seed_call(jobs, orders):
+        # per-call work in the seed design: materialise + gather + reduce
+        outcomes, weights = evaluator.enumerate_outcomes(jobs)
+        durations, success = evaluator._realized_arrays(jobs, outcomes)
+        return evaluator._static_batch(
+            torch.tensor(durations, dtype=torch.float64, device=dev),
+            torch.as_tensor(success, device=dev),
+            torch.as_tensor(weights, dtype=torch.float64, device=dev),
+            torch.as_tensor(orders, device=dev),
+        ).cpu().numpy()
+
+    rows = []
+    rng = np.random.default_rng(31)
+    repeats = 5 if full else 3
+
+    n = n_jobs  # M=2 -> K = 2**21 at the default, the seed cap
+    jobs = generate_workload(rng, n)
+    orders = np.stack([policies.rank_order(jobs),
+                       rng.permutation(n).astype(np.int32)])
+    t_fused, v_fused = _median_after_warmup(
+        lambda: np.asarray(evaluator.expected_sojourn_static(jobs, orders, device=device)),
+        repeats)
+    t_seed, v_seed = _median_after_warmup(lambda: seed_call(jobs, orders), repeats)
+    relerr = float(np.max(np.abs(v_fused - v_seed) / np.abs(v_seed)))
+    assert relerr <= 1e-9, f"fused/seed divergence: {relerr}"
+    rows.append({
+        "k_combos": 1 << n, "n_jobs": n, "orders": len(orders),
+        "seed_s": t_seed, "fused_s": t_fused,
+        "speedup": t_seed / t_fused, "max_relerr_vs_seed": relerr,
+    })
+
+    if full:  # beyond the seed's representable range: fused only
+        n = 26
+        jobs = generate_workload(rng, n)
+        orders = policies.rank_order(jobs)[None]
+        t_fused, _ = _median_after_warmup(
+            lambda: evaluator.expected_sojourn_static(jobs, orders, device=device), 1)
+        rows.append({
+            "k_combos": 1 << n, "n_jobs": n, "orders": 1,
+            "seed_s": None, "fused_s": t_fused,
+            "speedup": None, "max_relerr_vs_seed": None,
+        })
+
+    _save("BENCH_eval", rows, out)
+    return rows
+
+
+def table_eval_dynamic(full: bool = False, device=None, out: str = OUT, n_jobs: int = 21):
+    """Seed materialised lockstep vs the fused dynamic op
+    (BENCH_eval_dynamic).
+
+    The seed design for SR/SERPT (``evaluator._dynamic_batch``) builds the
+    (K, N) outcome/success tables on the host and simulates every
+    combination in lockstep (plain PyTorch on ``device``); the fused op
+    (``dynamic_sojourn_enum`` on the card) decodes combinations on the fly
+    and simulates them in its threads.  Timed at K = 2**21; ``--full``
+    adds SERPT and a fused-only row at K = 2**26.
+    """
+    dev = resolve_device(device)
+
+    def seed_call(jobs, idx_table, stage_durs, total_stages):
+        # per-call work in the seed design: materialise + gather + simulate
+        outcomes, weights = evaluator.enumerate_outcomes(jobs)
+        _, success = evaluator._realized_arrays(jobs, outcomes)
+        return float(evaluator._dynamic_batch(
+            torch.tensor(idx_table, dtype=torch.float64, device=dev),
+            torch.tensor(stage_durs, dtype=torch.float64, device=dev),
+            torch.as_tensor(outcomes, device=dev), torch.as_tensor(success, device=dev),
+            torch.as_tensor(weights, dtype=torch.float64, device=dev), total_stages,
+        ))
+
+    rows = []
+    rng = np.random.default_rng(37)
+    repeats = 2 if full else 1
+    policies_timed = ("sr", "serpt") if full else ("sr",)
+
+    n = n_jobs  # M=2 -> K = 2**21 at the default, the materialisation cap
+    jobs = generate_workload(rng, n)
+    stage_durs = policies.stage_durations(jobs)
+    total_stages = int(policies.padded_arrays(jobs)[2].sum())
+    for policy in policies_timed:
+        idx_table = policies.index_table(jobs, policy)
+        t_fused, v_fused = _median_after_warmup(
+            lambda: evaluator.expected_sojourn_dynamic(jobs, policy, device=device), repeats)
+        t_seed, v_seed = _median_after_warmup(
+            lambda: seed_call(jobs, idx_table, stage_durs, total_stages), repeats)
+        relerr = abs(v_fused - v_seed) / abs(v_seed)
+        assert relerr <= 1e-9, f"fused/seed divergence: {relerr}"
+        rows.append({
+            "k_combos": 1 << n, "n_jobs": n, "policy": policy,
+            "seed_s": t_seed, "fused_s": t_fused,
+            "speedup": t_seed / t_fused, "max_relerr_vs_seed": relerr,
+        })
+
+    if full:  # beyond the seed's representable range: fused only
+        n = 26
+        jobs = generate_workload(rng, n)
+        t_fused, _ = _median_after_warmup(
+            lambda: evaluator.expected_sojourn_dynamic(jobs, "sr", device=device), 1)
+        rows.append({
+            "k_combos": 1 << n, "n_jobs": n, "policy": "sr",
+            "seed_s": None, "fused_s": t_fused,
+            "speedup": None, "max_relerr_vs_seed": None,
+        })
+
+    _save("BENCH_eval_dynamic", {"rows": rows}, out)
+    return rows
+
+
+def table_eval_mc(full: bool = False, smoke: bool = False, device=None, out: str = OUT,
+                  n_jobs: int = 27):
+    """Streamed Monte Carlo vs the materialised sample-table path
+    (BENCH_eval_mc).
+
+    Beyond ``MAX_EXACT_COMBOS`` the evaluator estimates by Monte Carlo.
+    The materialised design (``sample_outcomes`` + the explicit-outcomes
+    op, ``sojourn_outcomes`` on the card) builds the (S, N) sample table
+    on the host every call; the streamed design (``samples=(seed,
+    n_samples)``, ``sojourn_mc`` on the card) draws outcomes inside the
+    kernel from the Threefry counter stream.  Timed on a K = 2**27
+    workload (``n_jobs=27``): streamed at 2**23 samples vs materialised at
+    2**21 — the streamed path must be >= 2x the throughput at 4x the
+    samples.  A small-K control checks the streamed estimate against the
+    exact enumeration within 3-sigma CLT bounds (sigma replayed on the
+    host from the same stream).  ``smoke`` shrinks the sample counts and
+    drops the throughput bar; the kernels still run on the card.
+    """
+    from repro_torch.kernels.sojourn_eval.ref import ref_mc_outcomes
+
+    seed = 0x5EED
+    rng = np.random.default_rng(43)
+
+    # --- small-K control: streamed estimate vs exact, CLT bound ----------
+    ctrl_samples = 1 << (12 if smoke else 16)
+    ctrl_jobs = generate_workload(rng, 8)  # K = 256
+    order = policies.rank_order(ctrl_jobs)
+    exact = evaluator.expected_sojourn_static(ctrl_jobs, order, device=device)
+    est = evaluator.expected_sojourn_static(ctrl_jobs, order, samples=(seed, ctrl_samples),
+                                            device=device)
+    sizes, probs, num_stages = policies.padded_arrays(ctrl_jobs)
+    outcomes, _ = ref_mc_outcomes(probs, num_stages, seed, ctrl_samples)
+    d = sizes[np.arange(len(ctrl_jobs))[None, :], outcomes]
+    succ = outcomes == num_stages[None, :] - 1
+    t = np.cumsum(d[:, order], axis=1)
+    cnt = succ.sum(axis=1)
+    vals = np.where(cnt > 0, (t * succ[:, order]).sum(axis=1) / np.maximum(cnt, 1), 0.0)
+    sigma = float(vals.std(ddof=1) / np.sqrt(ctrl_samples))
+    z = abs(est - exact) / sigma
+    assert z <= 3.0, f"streamed MC outside 3-sigma CLT bound: z={z}"
+    control = {
+        "k_combos": int(evaluator.exact_combination_count(ctrl_jobs)),
+        "n_samples": ctrl_samples, "exact": float(exact),
+        "streamed_est": float(est), "sigma": sigma, "z_score": float(z),
+    }
+
+    # --- throughput: K > MAX_EXACT_COMBOS, MC is the only option ---------
+    n = n_jobs  # M=2 -> K = 2**27 > MAX_EXACT_COMBOS at the default
+    jobs = generate_workload(rng, n)
+    orders = policies.rank_order(jobs)[None]
+    s_streamed = 1 << (12 if smoke else 23)
+    s_materialized = 1 << (10 if smoke else 21)
+    repeats = 1 if smoke else (3 if full else 2)
+
+    def streamed_time():
+        ts = []
+        for rep in range(repeats + 1):  # the first rep warms up
+            t0 = time.perf_counter()
+            evaluator.expected_sojourn_static(jobs, orders, samples=(seed + rep, s_streamed),
+                                              device=device)
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts[1:]))
+
+    def materialized_time():
+        g = np.random.default_rng(seed)
+        ts = []
+        for _ in range(repeats + 1):
+            t0 = time.perf_counter()
+            # per-call work in the materialised design: host sampling of
+            # the (S, N) table, then the explicit-outcomes op
+            mc_o, mc_w = evaluator.sample_outcomes(jobs, s_materialized, g)
+            evaluator.expected_sojourn_static(jobs, orders, outcomes=mc_o, weights=mc_w,
+                                              device=device)
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts[1:]))
+
+    t_streamed = streamed_time()
+    t_materialized = materialized_time()
+    tp_streamed = s_streamed / t_streamed
+    tp_materialized = s_materialized / t_materialized
+    row = {
+        "k_combos": 1 << n, "n_jobs": n,
+        "streamed_samples": s_streamed, "streamed_s": t_streamed,
+        "streamed_samples_per_s": tp_streamed,
+        "materialized_samples": s_materialized, "materialized_s": t_materialized,
+        "materialized_samples_per_s": tp_materialized,
+        "throughput_ratio": tp_streamed / tp_materialized,
+    }
+    if not smoke:
+        assert row["throughput_ratio"] >= 2.0, (
+            f"streamed MC below the 2x throughput bar: {row}"
+        )
+    _save("BENCH_eval_mc", {
+        "mode": "smoke" if smoke else ("full" if full else "default"),
+        "device": str(resolve_device(device)),
+        "clt_control": control,
+        "rows": [row],
+    }, out)
+    return [{**row, "control_z_score": control["z_score"]}]
+
+
+# ---------------------------------------------------------------------------
 
 
 def _fmt(rows: list[dict]) -> str:
@@ -292,10 +545,14 @@ TABLES = {
     "stages": table_stages,
     "trace": table_trace,
     "faults": table_faults,
+    "eval_perf": table_eval_perf,
+    "eval_dynamic": table_eval_dynamic,
+    "eval_mc": table_eval_mc,
 }
 
 #: Tables whose evaluations run on ``--device``; the rest are host code.
-ON_DEVICE = ("fig1", "sojourn", "competitive", "stages")
+ON_DEVICE = ("fig1", "sojourn", "competitive", "stages", "eval_perf", "eval_dynamic",
+             "eval_mc")
 
 
 def main(argv=None) -> None:
@@ -305,6 +562,8 @@ def main(argv=None) -> None:
     )
     ap.add_argument("--table", default="all", choices=["all", *TABLES])
     ap.add_argument("--full", action="store_true", help="paper-scale trials")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny sample counts and no throughput bar (eval_mc only)")
     ap.add_argument("--cache-dir", default=None, metavar="DIR",
                     help="persist the workload-keyed memo tier in DIR "
                          "(overrides REPRO_CACHE_DIR)")
@@ -315,12 +574,8 @@ def main(argv=None) -> None:
 
     names = list(TABLES) if args.table == "all" else [args.table]
     if any(name in ON_DEVICE for name in names):
-        from repro_torch.device import resolve_device
-
         dev = resolve_device(args.device)
         if dev.type == "cuda":
-            import torch
-
             print(f"device: {dev} ({torch.cuda.get_device_name(dev)})")
         else:
             print(f"device: {dev} (plain PyTorch versions of the kernels)")
@@ -338,6 +593,8 @@ def main(argv=None) -> None:
         kw = {"full": args.full, "out": args.out}
         if name in ON_DEVICE:
             kw["device"] = args.device
+        if name == "eval_mc":
+            kw["smoke"] = args.smoke
         t0 = time.perf_counter()
         if name in ("sojourn", "competitive") and args.table == "all":
             if shared_study is None:

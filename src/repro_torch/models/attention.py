@@ -1,13 +1,17 @@
-"""GQA self-attention: full-sequence (prefill, training) and one-token decode.
+"""GQA attention: full-sequence self attention (prefill, training; causal
+or bidirectional), cross attention against a memory, and one-token
+decode.
 
-The counterpart of ``repro/models/attention.py`` for the dense family on
-one device.  Full-sequence attention goes through the ``flash_fwd``
-kernel, and in training its backward through ``flash_dkv`` and
-``flash_dq`` (:func:`repro_torch.kernels.flash_attention.flash_attention`); decode
-attends one new token over the KV cache with the plain
+The counterpart of ``repro/models/attention.py`` on one device.
+Full-sequence and cross attention go through the ``flash_fwd`` kernel,
+and in training its backward through ``flash_dkv`` and ``flash_dq``
+(:func:`repro_torch.kernels.flash_attention.flash_attention`); so does
+cross attention in a decode step, whose one query row attends over the
+whole memory, as the reference's does.  Self-attention decode attends
+one new token over the KV cache with the plain
 :func:`~repro_torch.kernels.flash_attention.ref.ref_attention`, as the
-reference's ``attn_decode`` does.  Cross attention and the
-sequence-parallel decode come with their slices.
+reference's ``attn_decode`` does.  The sequence-parallel decode comes
+with the sharding slice.
 """
 
 from __future__ import annotations
@@ -20,10 +24,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import ParamSpec
 from repro_torch.models.layers import rms_norm, rope
 
-__all__ = ["attn_specs", "attn_apply", "attn_decode"]
+__all__ = ["attn_specs", "cross_attn_specs", "attn_apply", "attn_decode", "cross_attn_apply",
+           "memory_kv"]
 
 
-def attn_specs(cfg: ModelConfig) -> dict:
+def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """The projections (and the qk-norm scales); with ``cross`` also the
+    scalar float32 ``gate`` of a gated cross-attention block, 0 at init."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     specs = {
         "wq": ParamSpec((d, hq, hd), ("embed", "q_heads", "head_dim"), dtype=cfg.pdtype),
@@ -34,7 +41,13 @@ def attn_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         specs["q_norm"] = ParamSpec((hd,), (None,), init="ones", dtype=torch.float32)
         specs["k_norm"] = ParamSpec((hd,), (None,), init="ones", dtype=torch.float32)
+    if cross:
+        specs["gate"] = ParamSpec((), (), init="zeros", dtype=torch.float32)
     return specs
+
+
+def cross_attn_specs(cfg: ModelConfig) -> dict:
+    return attn_specs(cfg, cross=True)
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -44,18 +57,20 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_q(p, x, cfg: ModelConfig, positions):
+    """q (B, S, Hq, hd); RoPE at ``positions`` unless they are None."""
     q = _heads(x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta)
+    return q if positions is None else rope(q, positions, cfg.rope_theta)
 
 
 def _project_kv(p, x, cfg: ModelConfig, positions):
+    """(k, v) (B, S, Hkv, hd); RoPE on k at ``positions`` unless None."""
     k = _heads(x, p["wk"])
     v = _heads(x, p["wv"])
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return rope(k, positions, cfg.rope_theta), v
+    return (k if positions is None else rope(k, positions, cfg.rope_theta)), v
 
 
 def _out_proj(p, o):
@@ -70,15 +85,42 @@ def attn_apply(
     cfg: ModelConfig,
     positions: torch.Tensor,  # (B, S)
     *,
+    causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self attention (prefill); returns ``(out, (k,
-    v))``, the projected keys and values being what the serving cache
-    holds."""
+    """Full-sequence self attention (prefill, training; ``causal=False``
+    for an encoder); returns ``(out, (k, v))``, the projected keys and
+    values being what the serving cache holds."""
     q = _project_q(p, x, cfg, positions)
     k, v = _project_kv(p, x, cfg, positions)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     return _out_proj(p, o), (k, v)
+
+
+def cross_attn_apply(
+    p: dict,
+    x: torch.Tensor,  # (B, S, D)
+    memory_kv: tuple[torch.Tensor, torch.Tensor],  # each (B, S_mem, Hkv, hd)
+    cfg: ModelConfig,
+    *,
+    gated: bool = False,
+) -> torch.Tensor:
+    """Cross attention against a memory's precomputed K/V: no RoPE, no
+    mask.  With ``gated`` (Llama-3.2-Vision) the output is scaled by
+    ``tanh(gate)`` in the output's type; the gate is 0 at init, so an
+    initialised model's cross blocks add nothing."""
+    q = _project_q(p, x, cfg, positions=None)
+    k, v = memory_kv
+    out = _out_proj(p, flash_attention(q, k, v, causal=False))
+    if gated:
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
+    return out
+
+
+def memory_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig):
+    """(k, v) of a memory (B, S_mem, D) for :func:`cross_attn_apply`,
+    projected once a sequence: no RoPE."""
+    return _project_kv(p, memory, cfg, positions=None)
 
 
 def attn_decode(

@@ -1,18 +1,26 @@
-"""Model configuration of the port: the dense, moe and ssm families.
+"""Model configuration of the port: one dataclass for the six families.
 
-The counterpart of ``repro/models/config.py``, carrying the fields those
-families read: the dense decoder (Qwen3, Llama-3, Granite), the
-mixture-of-experts decoder (Mixtral, Kimi-K2) and the pure Mamba-2 stack
-(Mamba2).  The dtypes are ``torch.dtype`` properties
-(:attr:`ModelConfig.dtype`, :attr:`ModelConfig.pdtype`) made from the
-reference's dtype names, so a config written for one package reads the
-same in the other.  ``remat`` and ``logit_chunk`` are read by training
+The counterpart of ``repro/models/config.py``.  Families:
+
+* dense  — decoder-only GQA transformer (Qwen3, Granite, Llama-3);
+* moe    — dense plus a mixture-of-experts FFN (Mixtral, Kimi-K2);
+* ssm    — a pure Mamba-2 stack (Mamba2);
+* hybrid — Jamba's attention:Mamba interleave in periods of
+  ``attn_period`` positions, with periodic MoE FFNs;
+* encdec — an encoder over stub audio-frame embeddings and a decoder
+  with cross attention (Seamless-M4T);
+* vlm    — a decoder with one gated cross-attention block a period of
+  ``cross_attn_period`` into stub image embeddings (Llama-3.2-Vision).
+
+The dtypes are ``torch.dtype`` properties (:attr:`ModelConfig.dtype`,
+:attr:`ModelConfig.pdtype`) made from the reference's dtype names, so a
+config written for one package reads the same in the other.  ``remat``
+and ``logit_chunk`` are read by training
 (:func:`repro_torch.models.transformer.lm_loss`), with the reference's
-defaults.  The other families of the reference (hybrid, encdec, vlm)
-come with a later slice of the port: a config of theirs raises
-``NotImplementedError``, and so does :mod:`repro_torch.configs.registry`
-for their architectures.  There are no ``*_impl`` fields: the device
-decides between a kernel and its plain version.
+defaults.  There are no ``*_impl``, ``attn_block_*``, ``scan_layers``
+or ``moe_ep`` fields: the device decides between a kernel and its plain
+version, the kernels fix their own tiles, the layers run in a Python
+loop, and there is one device.
 """
 
 from __future__ import annotations
@@ -23,8 +31,7 @@ import torch
 
 __all__ = ["ModelConfig", "FAMILIES"]
 
-#: Families this package builds.
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 #: What a training block saves for the backward (``transformer._maybe_remat``).
 REMAT = ("none", "full", "dots")
 
@@ -63,6 +70,18 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 128
 
+    # --- hybrid (Jamba) ------------------------------------------------------
+    attn_period: int = 0  # within each period, position attn_offset is attention
+    attn_offset: int = 4
+
+    # --- encoder-decoder -----------------------------------------------------
+    n_enc_layers: int = 0
+    frontend_frames: int = 0  # stub audio frontend sequence length
+
+    # --- vlm -----------------------------------------------------------------
+    cross_attn_period: int = 0  # one cross-attn layer per period (position 0)
+    num_image_tokens: int = 0
+
     # --- numerics / execution ------------------------------------------------
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -72,7 +91,7 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise NotImplementedError(f"family {self.family!r} is not ported; see ROADMAP")
+            raise ValueError(f"unknown family {self.family!r}")
         if self.family != "ssm" and self.n_heads % max(self.n_kv_heads, 1):
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.remat not in REMAT:
@@ -111,24 +130,43 @@ class ModelConfig:
             return False
         return layer % self.moe_period == self.moe_offset
 
+    def is_attn_layer(self, layer: int) -> bool:
+        """hybrid only: which positions in the period are attention."""
+        if self.family != "hybrid":
+            return True
+        return layer % self.attn_period == self.attn_offset
+
     def param_count(self, active_only: bool = False) -> int:
         """Parameters as the reference counts them: the padded embedding
-        (and the untied head), then per layer the attention projections and
-        the SwiGLU MLP, or the experts (``top_k`` of them with
-        ``active_only``) and the router, or the Mamba-2 mixer; the norms'
-        vectors are left out."""
+        (and the untied head), then per decoder layer its mixer (attention,
+        twice for a vlm cross layer, or the Mamba-2 mixer) and its FFN (the
+        SwiGLU MLP, or the experts, ``top_k`` of them with ``active_only``,
+        and the router); for encdec the encoder's attention and MLP blocks
+        and each decoder layer's cross attention.  The norms' vectors and
+        the vlm gates are left out."""
         d, v = self.d_model, self.padded_vocab
         total = v * d * (1 if self.tie_embeddings else 2)
-        if self.family == "ssm":
-            din, g, n, h = self.d_inner, self.ssm_groups, self.ssm_state, self.ssm_heads
-            mamba = (d * din * 2 + d * 2 * g * n + d * h + self.ssm_conv * (din + 2 * g * n)
-                     + 3 * h + din + din * d)
-            return total + self.n_layers * mamba
-        attn = d * self.n_heads * self.hd * 2 + d * self.n_kv_heads * self.hd * 2
+        attn = (d * (self.n_heads + self.n_kv_heads) * self.hd * 2) if self.n_heads else 0
+        mlp = 3 * d * self.d_ff
         experts = self.top_k if active_only else self.n_experts
+        din, g, n, h = self.d_inner, self.ssm_groups, self.ssm_state, self.ssm_heads
+        mamba = (d * din * 2 + d * 2 * g * n + d * h + self.ssm_conv * (din + 2 * g * n)
+                 + 3 * h + din + din * d)
         for layer in range(self.n_layers):
-            if self.is_moe_layer(layer):
-                total += attn + 3 * d * self.d_ff * experts + d * self.n_experts
+            if self.family == "ssm":
+                total += mamba
+                continue
+            if self.family == "hybrid":
+                total += attn if self.is_attn_layer(layer) else mamba
+            elif self.family == "vlm" and self.cross_attn_period and (
+                    layer % self.cross_attn_period == 0):
+                total += 2 * attn  # self and gated cross
             else:
-                total += attn + (3 * d * self.d_ff if self.d_ff else 0)
+                total += attn
+            if self.is_moe_layer(layer):
+                total += 3 * d * self.d_ff * experts + d * self.n_experts
+            elif self.d_ff:
+                total += mlp
+        if self.family == "encdec":
+            total += self.n_enc_layers * (attn + mlp) + self.n_layers * attn
         return total

@@ -1,27 +1,36 @@
-"""Block assembly of the dense, moe and ssm families: specs, forward,
-loss, prefill, decode.
+"""Block assembly of every family: specs, forward, loss, prefill,
+``prime_memory``, decode.
 
-The counterpart of ``repro/models/transformer.py`` for the families whose
-layers are uniform, on one device (sharding comes later: ROADMAP Queue 1
-item 8).  The parameter tree has the reference's keys and its stacked
-``layers`` leaves (leading dim ``n_layers``); blocks run in a Python
-loop over the layers, where the reference scans.  A block is a pre-norm
-mixer then, where the family has one, a pre-norm FFN, both residual; the
-kinds per family are the reference's ``_uniform_kind``:
+The counterpart of ``repro/models/transformer.py`` on one device
+(sharding comes later: ROADMAP Queue 1 item 5).  The parameter tree has
+the reference's keys and its stacked leaves; blocks run in a Python loop
+where the reference scans.  A block is a pre-norm mixer then, where it
+has one, a pre-norm FFN, both residual:
 
-* dense: attention, then the SwiGLU MLP;
-* moe:   attention, then the mixture of experts (:mod:`.moe`), whose
-  load-balancing loss :func:`forward` sums over the layers;
-* ssm:   the Mamba-2 mixer (:mod:`.ssm`) alone.
+* dense, moe, ssm: uniform ``layers`` stacked over ``n_layers``, the
+  kinds the reference's ``_uniform_kind`` gives (attention and the
+  SwiGLU MLP; attention and the mixture of experts (:mod:`.moe`), whose
+  load-balancing loss :func:`forward` sums over the layers; the Mamba-2
+  mixer (:mod:`.ssm`) alone);
+* hybrid (Jamba) and vlm (Llama-3.2-Vision): ``periods`` stacked over
+  ``n_layers / period`` with one subtree ``pos{i}`` a position of the
+  period (:func:`_period_structure`).  Jamba's position ``attn_offset``
+  is attention and the rest Mamba, odd positions with MoE FFNs and even
+  ones with MLPs; the vision model's position 0 is a gated cross-attention
+  block into the image embeddings, whose K/V each period projects from
+  the raw embeddings with its own weights;
+* encdec (Seamless): a bidirectional encoder stack ``enc_layers`` over
+  the frame embeddings (with RoPE), ``enc_norm``, then decoder ``layers``
+  of causal self attention, an ungated cross attention (``ln_x``,
+  ``xattn``) into the encoder's output, and the MLP.
 
 Three modes share the block code: ``forward(mode="train")`` (what
-:func:`lm_loss` runs) builds no cache and runs each block under
-``cfg.remat``; ``forward(mode="prefill")`` runs the prompt and hands back
-every layer's cache entry (attention K/V, or the Mamba conv tails and
-float32 state); ``decode_step`` runs one token against the cache and
-updates the cache IN PLACE.  The hybrid, vlm and encdec families never
-reach this module: their :class:`ModelConfig` raises
-``NotImplementedError``.
+:func:`lm_loss` runs) builds no cache and runs each layer (a period, for
+the period families) under ``cfg.remat``; ``forward(mode="prefill")``
+runs the prompt and hands back every layer's cache entry (attention K/V,
+or the Mamba conv tails and float32 state); ``decode_step`` runs one
+token against the cache and updates the cache IN PLACE.  Cross attention
+decodes against the stacked memory K/V of :func:`prime_memory`.
 """
 
 from __future__ import annotations
@@ -55,10 +64,12 @@ from repro_torch.models.layers import (
 __all__ = [
     "param_specs",
     "init_params",
+    "encode",
     "forward",
     "lm_loss",
     "init_cache",
     "prefill",
+    "prime_memory",
     "decode_step",
 ]
 
@@ -67,10 +78,27 @@ def _norm_spec(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec((cfg.d_model,), (None,), init="ones", dtype=torch.float32)
 
 
-def _stack_specs(spec: Any, n: int) -> Any:
-    """Prepend a stacked leading "layers" dim to every ParamSpec leaf."""
+def _attn_block_specs(cfg: ModelConfig, moe: bool, cross: bool = False) -> dict:
+    specs = {"ln1": _norm_spec(cfg), "attn": attn.attn_specs(cfg, cross=cross)}
+    if cfg.d_ff or moe:
+        specs["ln2"] = _norm_spec(cfg)
+        specs["ffn"] = moe_mod.moe_specs(cfg) if moe else mlp_specs(cfg)
+    return specs
+
+
+def _mamba_block_specs(cfg: ModelConfig, ffn: str | None = None) -> dict:
+    specs = {"ln1": _norm_spec(cfg), "mamba": ssm_mod.ssm_specs(cfg)}
+    if ffn is not None:
+        specs["ln2"] = _norm_spec(cfg)
+        specs["ffn"] = moe_mod.moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg)
+    return specs
+
+
+def _stack_specs(spec: Any, n: int, axis_name: str = "layers") -> Any:
+    """Prepend a stacked leading dim, named ``axis_name``, to every
+    ParamSpec leaf."""
     return tree_map(
-        lambda s: ParamSpec((n, *s.shape), ("layers", *s.logical), s.init, s.scale, s.dtype),
+        lambda s: ParamSpec((n, *s.shape), (axis_name, *s.logical), s.init, s.scale, s.dtype),
         spec,
     )
 
@@ -82,16 +110,50 @@ def _uniform_kind(cfg: ModelConfig) -> tuple[str, str | None]:
     return "attn", "moe" if cfg.n_experts > 0 else ("mlp" if cfg.d_ff else None)
 
 
+def _period_structure(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """(mixer, ffn kind) of each position of a period (hybrid, vlm)."""
+    if cfg.family == "hybrid":
+        return [("attn" if pos == cfg.attn_offset else "mamba",
+                 "moe" if cfg.is_moe_layer(pos) else "mlp") for pos in range(cfg.attn_period)]
+    if cfg.family == "vlm":
+        return [("cross", "mlp")] + [("attn", "mlp")] * (cfg.cross_attn_period - 1)
+    raise ValueError(cfg.family)
+
+
+def _n_periods(cfg: ModelConfig, period: list) -> int:
+    if cfg.n_layers % len(period):
+        raise ValueError(f"{cfg.n_layers} layers not divisible by period {len(period)}")
+    return cfg.n_layers // len(period)
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    mixer, ffn = _uniform_kind(cfg)
-    if mixer == "mamba":
-        block = {"ln1": _norm_spec(cfg), "mamba": ssm_mod.ssm_specs(cfg)}
+    specs: dict = {"embed": embed_specs(cfg)}
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        specs["layers"] = _stack_specs(_attn_block_specs(cfg, moe=cfg.n_experts > 0),
+                                       cfg.n_layers)
+    elif fam == "ssm":
+        specs["layers"] = _stack_specs(_mamba_block_specs(cfg), cfg.n_layers)
+    elif fam in ("hybrid", "vlm"):
+        period = _period_structure(cfg)
+        pos_specs = {}
+        for i, (mixer, ffn) in enumerate(period):
+            if mixer == "mamba":
+                pos_specs[f"pos{i}"] = _mamba_block_specs(cfg, ffn)
+            else:
+                pos_specs[f"pos{i}"] = _attn_block_specs(cfg, moe=ffn == "moe",
+                                                         cross=mixer == "cross")
+        specs["periods"] = _stack_specs(pos_specs, _n_periods(cfg, period), "periods")
+    elif fam == "encdec":
+        dec_block = _attn_block_specs(cfg, moe=False)
+        dec_block["ln_x"] = _norm_spec(cfg)
+        dec_block["xattn"] = attn.attn_specs(cfg)  # ungated: no "gate"
+        specs["enc_layers"] = _stack_specs(_attn_block_specs(cfg, moe=False), cfg.n_enc_layers)
+        specs["layers"] = _stack_specs(dec_block, cfg.n_layers)
+        specs["enc_norm"] = _norm_spec(cfg)
     else:
-        block = {"ln1": _norm_spec(cfg), "attn": attn.attn_specs(cfg)}
-    if ffn is not None:
-        block["ln2"] = _norm_spec(cfg)
-        block["ffn"] = moe_mod.moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg)
-    return {"embed": embed_specs(cfg), "layers": _stack_specs(block, cfg.n_layers)}
+        raise ValueError(fam)
+    return specs
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
@@ -100,9 +162,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 
 
 def _unstack(stacked: dict) -> list[dict]:
-    """The per-layer parameter trees of the stacked ``layers`` leaves.  One
-    ``unbind`` per leaf, so that autograd stacks the layers' gradients once
-    (indexing each layer instead would add a leaf-sized zero tensor a
+    """The per-layer (or per-period) parameter trees of stacked leaves.
+    One ``unbind`` per leaf, so that autograd stacks the layers' gradients
+    once (indexing each layer instead would add a leaf-sized zero tensor a
     layer)."""
     layers = tree_map(lambda a: a.unbind(0), stacked)
     n = len(tree_leaves(layers)[0])
@@ -111,7 +173,7 @@ def _unstack(stacked: dict) -> list[dict]:
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str | None):
     """x plus the block's FFN, and the layer's aux loss."""
-    if kind is None:
+    if kind is None or "ffn" not in lp:
         return x, 0.0
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if kind == "moe":
@@ -120,10 +182,13 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str | None):
     return x + mlp_apply(lp["ffn"], h), 0.0
 
 
-def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, mode: str):
-    """One layer: ``(x, aux loss, cache entry)``, the entry None unless
-    ``mode="prefill"``."""
-    mixer, ffn = _uniform_kind(cfg)
+def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor | None, cfg: ModelConfig,
+           mode: str, *, mixer: str, ffn_kind: str | None, memory=None,
+           window: int | None = None, causal: bool = True):
+    """One layer over a whole sequence: ``(x, aux loss, cache entry)``, the
+    entry None unless ``mode="prefill"`` and the mixer keeps one (a cross
+    block's cache entry is the unused placeholder :func:`init_cache`
+    makes)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     entry = None
     if mixer == "mamba":
@@ -131,11 +196,15 @@ def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
             out, entry = ssm_mod.ssm_apply(lp["mamba"], h, cfg, return_cache=True)
         else:
             out = ssm_mod.ssm_apply(lp["mamba"], h, cfg)
-    else:
-        out, kv = attn.attn_apply(lp["attn"], h, cfg, positions, window=cfg.sliding_window)
+    elif mixer == "cross":
+        out = attn.cross_attn_apply(lp["attn"], h, memory, cfg, gated=True)
+    elif mixer == "attn":
+        out, kv = attn.attn_apply(lp["attn"], h, cfg, positions, causal=causal, window=window)
         if mode == "prefill":
             entry = kv
-    x, aux = _ffn(lp, x + out, cfg, ffn)
+    else:
+        raise ValueError(mixer)
+    x, aux = _ffn(lp, x + out, cfg, ffn_kind)
     return x, aux, entry
 
 
@@ -160,6 +229,26 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return lambda *args: checkpoint(fn, *args, **kwargs)
 
 
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
+    """The encoder stack over frame embeddings (B, S_enc, D) (encdec):
+    bidirectional self attention with RoPE at the frames' positions and
+    the MLP a layer, then ``enc_norm``.  ``remat`` runs each layer under
+    ``cfg.remat`` (training)."""
+    x = frames.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+
+    def body(lp, x):
+        return _block(lp, x, positions, cfg, "train", mixer="attn", ffn_kind="mlp",
+                      causal=False)[0]
+
+    if remat:
+        body = _maybe_remat(body, cfg)
+    for lp in _unstack(params["enc_layers"]):
+        x = body(lp, x)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def forward(
     params: dict,
     batch: dict,
@@ -168,13 +257,15 @@ def forward(
     mode: str = "prefill",
 ) -> tuple[torch.Tensor, torch.Tensor | float, list | None]:
     """Full-sequence forward over ``batch["tokens"]`` (B, S) [with
-    optional ``positions``].  Returns ``(hidden (B, S, D), aux_loss,
-    caches)``: the final-normed hidden states, the MoE load-balancing
-    loss summed over the layers (0.0 where there is none), and with
-    ``mode="prefill"`` each layer's cache entry (attention ``(k, v)``
-    (B, S, Hkv, hd), or the Mamba ``{"conv_x", "conv_bc", "state"}``),
-    else None.  ``mode="train"`` builds no cache entry and runs each
-    block under ``cfg.remat``."""
+    optional ``positions``; ``image_embeds`` (B, S_img, D) for vlm,
+    ``enc_frames`` (B, S_enc, D) for encdec].  Returns ``(hidden (B, S,
+    D), aux_loss, caches)``: the final-normed hidden states, the MoE
+    load-balancing loss summed over the layers (0.0 where there is none),
+    and with ``mode="prefill"`` each layer's cache entry (attention ``(k,
+    v)`` (B, S, Hkv, hd), or the Mamba ``{"conv_x", "conv_bc", "state"}``;
+    for the period families a dict ``{"pos{i}": entry}`` a period, None at
+    a cross position), else None.  ``mode="train"`` builds no cache entry
+    and runs each layer or period under ``cfg.remat``."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     tokens = batch["tokens"]
@@ -182,15 +273,52 @@ def forward(
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+    fam = cfg.family
 
-    def body(lp, x):
-        return _block(lp, x, positions, cfg, mode)
+    if fam in ("hybrid", "vlm"):
+        period = _period_structure(cfg)
+        # the vision model's periods project their own cross K/V from the
+        # raw image embeddings
+        image = batch["image_embeds"].to(cfg.dtype) if fam == "vlm" else None
+
+        def body(pp, x):
+            aux, entries = 0.0, {}
+            for i, (mixer, ffn_kind) in enumerate(period):
+                p_i = pp[f"pos{i}"]
+                mem = attn.memory_kv(p_i["attn"], image, cfg) if mixer == "cross" else None
+                x, aux_i, entries[f"pos{i}"] = _block(
+                    p_i, x, positions, cfg, mode, mixer=mixer, ffn_kind=ffn_kind, memory=mem,
+                    window=cfg.sliding_window)
+                aux = aux + aux_i
+            return x, aux, entries
+
+        stacked = params["periods"]
+    elif fam == "encdec":
+        enc = encode(params, batch["enc_frames"], cfg, remat=mode == "train")
+
+        def body(lp, x):
+            x, _, entry = _block(lp, x, positions, cfg, mode, mixer="attn", ffn_kind=None)
+            h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+            x = x + attn.cross_attn_apply(lp["xattn"], h, attn.memory_kv(lp["xattn"], enc, cfg),
+                                          cfg)
+            x, aux = _ffn(lp, x, cfg, "mlp")
+            return x, aux, entry
+
+        stacked = params["layers"]
+    else:
+        mixer, ffn_kind = _uniform_kind(cfg)
+
+        def body(lp, x):
+            return _block(lp, x, positions, cfg, mode, mixer=mixer, ffn_kind=ffn_kind,
+                          window=cfg.sliding_window)
+
+        stacked = params["layers"]
 
     if mode == "train":
         body = _maybe_remat(body, cfg)
     caches = [] if mode == "prefill" else None
     aux = 0.0
-    for lp in _unstack(params["layers"]):
+    for lp in _unstack(stacked):
         x, aux_l, entry = body(lp, x)
         aux = aux + aux_l
         if caches is not None:
@@ -202,7 +330,8 @@ def forward(
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy (+ MoE aux), as the reference's
     ``lm_loss`` (``transformer.py:396-413``).  batch: tokens, labels (B,
-    S), a label < 0 masked.  Returns ``(loss, {"ce", "aux", "loss"})``."""
+    S), a label < 0 masked, and the family's extras.  Returns ``(loss,
+    {"ce", "aux", "loss"})``."""
     x, aux, _ = forward(params, batch, cfg, mode="train")
     labels = batch["labels"]
     if cfg.logit_chunk:
@@ -216,33 +345,82 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Zeroed serving cache ``{"layers": {...}}``, each leaf stacked over
-    the layers: attention ``k`` and ``v`` (L, B, S, Hkv, hd) in the
-    working type, S = min(max_len, window); or the Mamba ``conv_x``,
-    ``conv_bc`` (working type) and ``state`` (float32), which do not grow
-    with max_len."""
-    if cfg.family == "ssm":
-        dtypes = {"conv_x": cfg.dtype, "conv_bc": cfg.dtype, "state": torch.float32}
-        return {"layers": {name: torch.zeros((cfg.n_layers, *shape), dtype=dtypes[name],
-                                             device=device)
-                           for name, shape in ssm_mod.ssm_cache_shape(cfg, batch).items()}}
+def _attn_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, device) -> dict:
     window = cfg.sliding_window
     s = min(max_len, window) if window else max_len
-    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
-    return {"layers": {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                       "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}}
+    shape = (n, batch, s, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def _ssm_cache(cfg: ModelConfig, n: int, batch: int, device) -> dict:
+    dtypes = {"conv_x": cfg.dtype, "conv_bc": cfg.dtype, "state": torch.float32}
+    return {name: torch.zeros((n, *shape), dtype=dtypes[name], device=device)
+            for name, shape in ssm_mod.ssm_cache_shape(cfg, batch).items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """Zeroed serving cache, each leaf stacked over the layers (or the
+    periods): attention ``k`` and ``v`` (L, B, S, Hkv, hd) in the working
+    type, S = min(max_len, window); or the Mamba ``conv_x``, ``conv_bc``
+    (working type) and ``state`` (float32), which do not grow with
+    max_len.  Uniform and encdec families: ``{"layers": {...}}``; hybrid
+    and vlm: ``{"periods": {"pos{i}": {...}}}``, a cross position holding
+    the reference's placeholder ``{"unused": (n_periods, 1)}`` (its memory
+    is static: :func:`prime_memory`)."""
+    fam = cfg.family
+    if fam == "ssm":
+        return {"layers": _ssm_cache(cfg, cfg.n_layers, batch, device)}
+    if fam in ("dense", "moe", "encdec"):
+        return {"layers": _attn_cache(cfg, cfg.n_layers, batch, max_len, device)}
+    if fam in ("hybrid", "vlm"):
+        period = _period_structure(cfg)
+        n = _n_periods(cfg, period)
+        per = {}
+        for i, (mixer, _) in enumerate(period):
+            if mixer == "mamba":
+                per[f"pos{i}"] = _ssm_cache(cfg, n, batch, device)
+            elif mixer == "cross":
+                per[f"pos{i}"] = {"unused": torch.zeros((n, 1), dtype=cfg.dtype, device=device)}
+            else:
+                per[f"pos{i}"] = _attn_cache(cfg, n, batch, max_len, device)
+        return {"periods": per}
+    raise ValueError(fam)
+
+
+def _store(stack: dict, i: int, entry, s: int, cfg: ModelConfig) -> None:
+    """Write layer ``i``'s prefill entry into the stacked cache ``stack``:
+    Mamba tensors as they are; attention K/V of ``s`` tokens padded to the
+    cache's length, or (s at or past it) its trailing window, in ring
+    layout for a sliding window (token t at slot t % window).  A None
+    entry (a cross position) leaves the placeholder."""
+    if entry is None:
+        return
+    if isinstance(entry, dict):
+        for name, t in entry.items():
+            stack[name][i] = t
+        return
+    k, v = entry
+    target = stack["k"].shape[2]
+    if s >= target:  # keep the trailing window
+        k, v = k[:, s - target:], v[:, s - target:]
+        if cfg.sliding_window:
+            shift = (s - target) % target
+            k, v = torch.roll(k, shift, dims=1), torch.roll(v, shift, dims=1)
+    stack["k"][i, :, : k.shape[1]] = k
+    stack["v"][i, :, : v.shape[1]] = v
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, max_len: int) -> tuple[torch.Tensor, dict]:
-    """Run the prompt and build the decode cache: ``(logits (B, S, V)
-    float32, cache)``.
+    """Run the prompt (and the family's extras) and build the decode
+    cache: ``(logits (B, S, V) float32, cache)``.
 
     As the reference's ``prefill`` (``transformer.py:607``) does, the
     final norm is applied once more to the forward's (already normed)
-    output before the unembedding.  Sliding-window caches keep the
-    trailing window in ring layout (token t at slot t % window); Mamba
-    layers hand over their conv tails and state as they are.
+    output before the unembedding.  Attention entries anywhere in the
+    tree (a period's attention positions too) are padded to ``max_len``
+    or keep their trailing window (:func:`_store`); Mamba entries hand
+    over their conv tails and state as they are.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -250,39 +428,80 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_len: int) -> tuple[
     x = rms_norm(x, params["embed"]["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg)
     cache = init_cache(cfg, b, max_len, tokens.device)
-    layers = cache["layers"]
-    if cfg.family == "ssm":
+    if "periods" in cache:
+        for i, per in enumerate(entries):
+            for name, entry in per.items():
+                _store(cache["periods"][name], i, entry, s, cfg)
+    else:
         for i, entry in enumerate(entries):
-            for name, t in entry.items():
-                layers[name][i] = t
-        return logits, cache
-    target = layers["k"].shape[2]
-    for i, (k, v) in enumerate(entries):
-        if s >= target:  # keep the trailing window
-            k, v = k[:, s - target:], v[:, s - target:]
-            if cfg.sliding_window:
-                shift = (s - target) % target
-                k, v = torch.roll(k, shift, dims=1), torch.roll(v, shift, dims=1)
-        layers["k"][i, :, : k.shape[1]] = k
-        layers["v"][i, :, : v.shape[1]] = v
+            _store(cache["layers"], i, entry, s, cfg)
     return logits, cache
 
 
+def prime_memory(params: dict, cfg: ModelConfig, batch: dict):
+    """The static cross-attention memory of a decode: stacked ``(k, v)``,
+    each (n, B, S_mem, Hkv, hd), one entry a decoder layer (encdec: the
+    encoder run over ``batch["enc_frames"]`` again, then each layer's
+    ``xattn`` projections) or a period (vlm: each period's cross
+    projections of ``batch["image_embeds"]``); None for the other
+    families."""
+    if cfg.family == "encdec":
+        enc = encode(params, batch["enc_frames"], cfg)
+        kv = [attn.memory_kv(lp["xattn"], enc, cfg) for lp in _unstack(params["layers"])]
+    elif cfg.family == "vlm":
+        image = batch["image_embeds"].to(cfg.dtype)
+        kv = [attn.memory_kv(pp["pos0"]["attn"], image, cfg)
+              for pp in _unstack(params["periods"])]
+    else:
+        return None
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def _decode_mixer(lp: dict, x: torch.Tensor, stack: dict, i: int, pos: int, cfg: ModelConfig,
+                  mixer: str) -> torch.Tensor:
+    """x plus one token's self-attention or Mamba mixer against layer
+    ``i`` of the stacked cache ``stack``, which it updates IN PLACE."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if mixer == "mamba":
+        out, _ = ssm_mod.ssm_decode(lp["mamba"], h, tree_map(lambda a: a[i], stack), cfg)
+    else:
+        out, _, _ = attn.attn_decode(lp["attn"], h, stack["k"][i], stack["v"][i], pos, cfg,
+                                     ring=cfg.sliding_window is not None)
+    return x + out
+
+
 def decode_step(params: dict, token: torch.Tensor, cache: dict, pos: int,
-                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, memory=None) -> tuple[torch.Tensor, dict]:
     """One serving step: logits (B, 1, V) float32 for the token after
     ``token`` (B, 1) at position ``pos``.  The cache is updated IN PLACE
-    and returned."""
-    mixer, ffn = _uniform_kind(cfg)
+    and returned.  ``memory`` is :func:`prime_memory`'s stacked cross K/V,
+    which the vlm and encdec families need."""
+    fam = cfg.family
+    if fam in ("vlm", "encdec") and memory is None:
+        raise ValueError(f"decode_step of the {fam} family needs prime_memory's memory")
     x = embed_tokens(params["embed"], token, cfg)
-    layers = cache["layers"]
-    for i, lp in enumerate(_unstack(params["layers"])):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if mixer == "mamba":
-            out, _ = ssm_mod.ssm_decode(lp["mamba"], h, tree_map(lambda a: a[i], layers), cfg)
-        else:
-            out, _, _ = attn.attn_decode(lp["attn"], h, layers["k"][i], layers["v"][i], pos,
-                                         cfg, ring=cfg.sliding_window is not None)
-        x, _ = _ffn(lp, x + out, cfg, ffn)
+    if fam in ("hybrid", "vlm"):
+        period = _period_structure(cfg)
+        for i, pp in enumerate(_unstack(params["periods"])):
+            for j, (mixer, ffn_kind) in enumerate(period):
+                p_j = pp[f"pos{j}"]
+                if mixer == "cross":  # the cache keeps its placeholder
+                    h = rms_norm(x, p_j["ln1"], cfg.norm_eps)
+                    x = x + attn.cross_attn_apply(p_j["attn"], h, (memory[0][i], memory[1][i]),
+                                                  cfg, gated=True)
+                else:
+                    x = _decode_mixer(p_j, x, cache["periods"][f"pos{j}"], i, pos, cfg, mixer)
+                x, _ = _ffn(p_j, x, cfg, ffn_kind)
+    elif fam == "encdec":
+        for i, lp in enumerate(_unstack(params["layers"])):
+            x = _decode_mixer(lp, x, cache["layers"], i, pos, cfg, "attn")
+            h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+            x = x + attn.cross_attn_apply(lp["xattn"], h, (memory[0][i], memory[1][i]), cfg)
+            x, _ = _ffn(lp, x, cfg, "mlp")
+    else:
+        mixer, ffn_kind = _uniform_kind(cfg)
+        for i, lp in enumerate(_unstack(params["layers"])):
+            x = _decode_mixer(lp, x, cache["layers"], i, pos, cfg, mixer)
+            x, _ = _ffn(lp, x, cfg, ffn_kind)
     x = rms_norm(x, params["embed"]["final_norm"], cfg.norm_eps)
     return unembed(params["embed"], x, cfg), cache

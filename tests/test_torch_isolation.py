@@ -43,6 +43,9 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.core.des, repro_torch.core.simulator, repro_torch.core.trace\n"
         "import repro_torch.cluster, repro_torch.cluster.faults, repro_torch.cluster.manager\n"
         "import repro_torch.obs.recorder, repro_torch.obs.report, repro_torch.launch.study\n"
+        "import repro_torch.models.frontends, repro_torch.examples\n"
+        "import repro_torch.examples.train_early_termination\n"
+        "import repro_torch.examples.cluster_schedule\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
