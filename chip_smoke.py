@@ -221,6 +221,9 @@ RTOL = 1e-9
 #: by float32 rounding.
 FLASH_O_ATOL = 1e-2
 FLASH_LSE_ATOL = 1e-4
+#: The head dims below 64 that the attention kernels take (every SMOKE
+#: config's): one 64-column panel that TMA fills with zeros past D.
+SMALL_HEAD_DIMS = (16, 32)
 #: Qwen3-8B decode step 1 against a prefill of prompt + 1 token, both bf16:
 #: the two paths round at different places (the decode's oracle attention
 #: normalises P before its bf16 rounding, the prefill's kernel after; the
@@ -398,6 +401,17 @@ EXAMPLE_CLUSTER_ARGS = ["--jobs", "6", "--servers", "2", "--stages", "3",
 #: The group of evaluate_many past the int64 outcome count: 80 two-stage
 #: jobs, streamed with 2**20 samples.
 LARGE_GROUP, LARGE_GROUP_SAMPLES = 80, 1 << 20
+#: Phase 9, the meshed programs on a (1, 1) mesh of one NCCL rank: the
+#: relative L2 error allowed against the unmeshed runs (their logits, the
+#: train step's loss); Qwen3-1.7B's meshed train steps (one micro-batch of
+#: MESH_TRAIN_BATCH x TRAIN_SEQ each); Jamba's long_500k decode (batch 1, a
+#: cache of LONG_CACHE tokens filled from the seed, LONG_STEPS steps); the
+#: dry run's cells on the (16, 16) mesh.
+MESH_REL_L2 = 1e-3
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 2, 2
+LONG_CACHE, LONG_STEPS = 524_288, 8
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
+                ("mixtral-8x22b", "long_500k"))
 #: The study phase (4b): the numerical study's sweep (N = 3-8 two-stage
 #: jobs) for workload sets STUDY_SETS, STUDY_TRIALS groups a (set, N) and
 #: STUDY_TRIALS_LAST at N = 8, each through evaluate_many on the card and
@@ -785,6 +799,7 @@ def phase_kernels(dev, report) -> None:
             log(f"  kernel {r['phase1_ms']:.3f} ms, plain {r['phase1_plain_ms']:.3f} ms")
 
     phase_new_regimes(dev, report)
+    phase_small_head_dims(dev, report)
     rng = np.random.default_rng(20)
     jobs = generate_workload(rng, 20)
     rank = policies.rank_order(jobs)
@@ -1163,7 +1178,7 @@ def check_flash(dev, report, shape, time_it=False, qkv=None, reps=10, twice=Fals
     return out
 
 
-def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None) -> dict:
+def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None, phase1=True) -> dict:
     """``flash_dkv`` and ``flash_dq`` against their plain versions on bf16
     inputs of ``shape`` (B, Hq, Hkv, S, D, causal, window), Sq = Skv, or
     (B, Hq, Hkv, Sq, Skv, D, causal, window), with the LSE of the
@@ -1215,7 +1230,7 @@ def check_flash_bwd(dev, report, shape, time_it=False, reps=10, qkv=None) -> dic
             require(err <= FLASH_BWD_REL_L2,
                     f"{name} {shape}: {label} rel L2 {err:.3e} > {FLASH_BWD_REL_L2}")
         key = "dkv" if name == "flash_dkv" else "dq"
-        if time_it and "phase1_ms" not in r:
+        if time_it and phase1 and "phase1_ms" not in r:
             r.update(phase1_shape=str(shape), phase1_ms=out[f"{key}_ms"],
                      phase1_plain_ms=out[f"{key}_plain_ms"])
             log(f"  {name}: kernel {r['phase1_ms']:.3f} ms, plain {r['phase1_plain_ms']:.3f} ms")
@@ -1483,14 +1498,56 @@ def phase_new_regimes(dev, report) -> None:
             args = (args[0][:, :r].contiguous(), *args[1:])
         t = check_moe(dev, report, shape, time_it=shape == prefill, args=args, phase1=False)
         if shape == prefill:
+            from repro_torch.kernels.moe_gemm.ref import moe_ffn_ref
+
+            cuda_ms(lambda: moe_ffn_ref(*args), 1)  # warm up
+            library_ms, _ = cuda_ms(lambda: moe_ffn_ref(*args), 3)
             row = regime_row(shape, t, bound_ms(6.0 * e * r * dm * dff, tensor_bytes(args),
-                                                e * r * dm * 2, peak=BF16_FLOPS))
+                                                e * r * dm * 2, peak=BF16_FLOPS), library_ms)
             rows.append(row)
             log(f"[regime] moe_ffn_fwd {shape}: {t['ms']:.3f} ms, median of 3, plain "
-                f"{t['plain_ms']:.1f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}): "
+                f"{t['plain_ms']:.1f} ms, three torch.bmm (moe_ffn_ref) {library_ms:.3f} ms; "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}): "
                 f"{row['bound_ms'] / t['ms']:.2%} of it")
     report["moe_ffn_fwd"]["regimes"] = rows
     del args
+    torch.cuda.empty_cache()
+
+
+def phase_small_head_dims(dev, report) -> None:
+    """Phase 1, second: ``flash_fwd``, ``flash_dkv`` and ``flash_dq`` at head
+    dims 16 and 32 (every SMOKE config's; one zero-filled 64-column panel),
+    each against its plain version, causal and not, under GQA with a ragged
+    S, a second call bitwise equal; then timed beside their bounds and
+    SDPA's time, the forward at the serving shape and the backward at the
+    training shape with the head dim cut, into each kernel's
+    ``head_dims``."""
+    import torch
+    import torch.nn.functional as F
+
+    for d in SMALL_HEAD_DIMS:
+        for causal in (True, False):
+            check_flash(dev, report, (2, 8, 2, 300, 300, d, causal, None), twice=True)
+            check_flash_bwd(dev, report, (2, 8, 2, 300, d, causal, None))
+        shape = (SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT, d, True, None)
+        q, k, v = flash_inputs(dev, *shape[:6], seed=4)
+        t = check_flash(dev, report, shape, True, qkv=(q, k, v), twice=True, phase1=False)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        cuda_ms(sdpa, 2)  # warm up
+        library_ms, _ = cuda_ms(sdpa, 10)
+        b, hq, _, sq, skv = shape[:5]
+        io_bytes = tensor_bytes((q, k, v)) + q.numel() * q.element_size() + b * hq * sq * 4
+        row = regime_row(shape, t, bound_ms(flash_flops(b, hq, sq, skv, d, True), io_bytes, 0,
+                                            peak=BF16_FLOPS), library_ms)
+        report["flash_fwd"].setdefault("head_dims", []).append(row)
+        log(f"[head dim {d}] flash_fwd {shape}: {t['ms']:.3f} ms, median of 10, plain "
+            f"{t['plain_ms']:.1f} ms, SDPA {library_ms:.3f} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}): {row['bound_ms'] / t['ms']:.2%} of it")
+        del q, k, v
+        bwd = time_flash_bwd(dev, report, (2, 16, 8, TRAIN_SEQ, d, True, None), phase1=False)
+        for name, row in bwd.items():
+            report[name].setdefault("head_dims", []).append(row)
     torch.cuda.empty_cache()
 
 
@@ -2061,8 +2118,11 @@ def phase_serving(dev) -> dict:
             f"decode vs prefill: rel L2 {rel:.3e}, max abs {max_abs:.3e}")
     del want
     busy_shares(run)
+    res = run["res"]
+    unmeshed = {"tokens": res.tokens.cpu(), "first_decode_logits": res.first_decode_logits.cpu(),
+                "prefill_s": res.prefill_s, "decode_s": list(res.decode_s), "counts": counts}
     release(run)
-    return {"launches": counts}
+    return {"launches": counts, "unmeshed": unmeshed}
 
 
 def mamba_decode_vs_prefill(tag: str, plan, params, prompts) -> float:
@@ -2431,10 +2491,12 @@ def phase_serving_seamless(dev) -> dict:
 
 def phase_examples() -> dict:
     """Phase 8: the two examples on the card through their ``main(argv)``,
+    with the reference's configs (the SMOKE ones at head dims 16 and 32),
     the launch counts around each: every attention kernel trains in the
     first, every model kernel runs in the second (whose pool holds Mamba2,
     Mixtral and Jamba); each job ends as a success or terminated, and the
-    walls are positive."""
+    walls are positive.  Then ``python -m repro_torch.launch.serve --smoke``
+    for Qwen3-8B and Mamba2-1.3B (head dim 16; the SSD scan)."""
     import tempfile
 
     from repro_torch.examples import cluster_schedule, train_early_termination
@@ -2476,6 +2538,278 @@ def phase_examples() -> dict:
         require(counts[name] > 0, f"cluster_schedule launched no {name}")
     out["cluster"] = {"sojourn_s": sojourns, "makespan_s": res.makespan, "wall_s": secs,
                       "launches": counts}
+
+    from repro_torch.launch import serve
+
+    for arch, kernel in (("qwen3-8b", "flash_fwd"), ("mamba2-1.3b", "ssd_fwd")):
+        reset_counts()
+        t0 = time.perf_counter()
+        require(serve.main(["--arch", arch, "--smoke"]) == 0, f"serve --smoke {arch}")
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"[examples] python -m repro_torch.launch.serve --arch {arch} --smoke in "
+            f"{secs:.1f} s; launches {counts}")
+        require(counts[kernel] > 0, f"serve --smoke {arch} launched no {kernel}")
+        out[f"serve_smoke {arch}"] = {"wall_s": secs, "launches": counts}
+    return out
+
+
+def mesh_serving(dev, mesh, unmeshed: dict) -> dict:
+    """Phase 9a: Qwen3-8B served meshed through ``default_serve_plan`` on the
+    same weights, prompts and token count as phase 5's unmeshed
+    ``generate``; the first decode step's logits held to phase 5's, the
+    tokens compared, the launch counts equal, both walls logged."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import serve
+
+    cfg = get_config("qwen3-8b")
+    tag = "[mesh qwen3-8b]"
+    plan = serve.default_serve_plan(
+        cfg, mesh, ShapeSpec("serve", SERVE_PROMPT + SERVE_STEPS + 1, SERVE_BATCH, "prefill"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)  # phase 5's draws, in its order
+    params = serve.init_weights(plan, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                            device=dev)
+    serve.generate(plan, params, prompts[:, :64], gen_len=2)  # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1)
+    counts = read_counts()
+    rel = rel_l2(res.first_decode_logits.float().cpu(), unmeshed["first_decode_logits"].float())
+    same_tokens = bool(torch.equal(res.tokens.cpu(), unmeshed["tokens"]))
+    mean = lambda xs: sum(xs) / len(xs) * 1e3  # noqa: E731
+    log(f"{tag} (1, 1) mesh, rules {plan.rules.resolve(('batch', 'seq'), mesh)}: prefill "
+        f"{res.prefill_s * 1e3:.1f} ms (unmeshed {unmeshed['prefill_s'] * 1e3:.1f}); decode "
+        f"{mean(res.decode_s):.2f} ms a token (unmeshed {mean(unmeshed['decode_s']):.2f}); "
+        f"first decode logits rel L2 {rel:.3e} against phase 5's; tokens equal {same_tokens}; "
+        f"launches {counts} (unmeshed {unmeshed['counts']})")
+    require(rel <= MESH_REL_L2, f"meshed Qwen3-8B: rel L2 {rel:.3e} > {MESH_REL_L2}")
+    require(counts["flash_fwd"] == unmeshed["counts"]["flash_fwd"] == cfg.n_layers,
+            f"meshed prefill launched flash_fwd {counts['flash_fwd']} times")
+    out = {"prefill_ms": res.prefill_s * 1e3, "decode_ms": mean(res.decode_s),
+           "unmeshed_prefill_ms": unmeshed["prefill_s"] * 1e3,
+           "unmeshed_decode_ms": mean(unmeshed["decode_s"]), "rel_l2": rel,
+           "tokens_equal": same_tokens, "launches": counts}
+    del params, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_training(dev, mesh) -> dict:
+    """Phase 9b: Qwen3-1.7B's train step on one micro-batch, unmeshed and
+    then meshed from the same seed and batch, MESH_TRAIN_STEPS steps each:
+    the losses within MESH_REL_L2, the attention kernels' counts equal."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+
+    cfg = get_config(TRAIN_ARCH)
+    tag = "[mesh training qwen3-1.7b]"
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                   global_batch=MESH_TRAIN_BATCH, seed=0)).batch(0)
+    out = {}
+    for name, m in (("unmeshed", None), ("meshed", mesh)):
+        plan = train.default_plan(cfg, m, device=dev, warmup_steps=TRAIN_LR_WARMUP,
+                                  total_steps=TRAIN_STEPS)
+        params, state = train.make_init(plan)(0)
+        step = train.make_train_step(plan)
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, walls = [], []
+        for _ in range(MESH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, train.batch_to_device(batch, dev))
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+                     "launches": read_counts()}
+        log(f"{tag} {name}: losses {losses}, step walls {[round(w * 1e3, 1) for w in walls]} "
+            f"ms; launches {out[name]['launches']}")
+        del params, state, step
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["meshed"]["losses"],
+                                                   out["unmeshed"]["losses"]))
+    log(f"{tag} loss rel err {rel:.3e}")
+    require(rel <= MESH_REL_L2, f"meshed train step: loss rel err {rel:.3e} > {MESH_REL_L2}")
+    for k in ("flash_fwd", "flash_dkv", "flash_dq"):
+        require(out["meshed"]["launches"][k] == out["unmeshed"]["launches"][k] > 0,
+                f"meshed {k} launches {out['meshed']['launches'][k]} != unmeshed "
+                f"{out['unmeshed']['launches'][k]}")
+    out["loss_rel_err"] = rel
+    return out
+
+
+def mesh_long_decode(dev, mesh) -> dict:
+    """Phase 9c: Jamba's long_500k cell at JAMBA_LAYERS layers: batch 1, a
+    LONG_CACHE-token cache filled from the seed, LONG_STEPS decode steps of
+    the same tokens with ``sp=True`` under LONG_CONTEXT_RULES against the
+    unmeshed (``sp=False``) decode of a copy of the cache."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.init import tree_bytes, tree_leaves, tree_map
+
+    cfg = get_config(JAMBA, n_layers=JAMBA_LAYERS)
+    tag = "[mesh long_500k jamba]"
+    spec = SHAPES["long_500k"]
+    require(spec.seq_len == LONG_CACHE and spec.global_batch == 1, f"long_500k is {spec}")
+    plan = serve.default_serve_plan(cfg, mesh, spec, long_context=True)
+    plain_plan = serve.ServePlan(cfg=cfg, max_len=LONG_CACHE, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    params = serve.init_weights(plain_plan, gen)
+    cache = T.init_cache(cfg, 1, LONG_CACHE, dev)
+    for t in tree_leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.float32)
+                .mul_(0.5 if t.dtype == torch.float32 else 1.0))
+    tokens = torch.randint(0, cfg.vocab_size, (LONG_STEPS, 1, 1), generator=gen, device=dev)
+    meshed_cache = tree_map(lambda t, log_: plan.cache_ctx.distribute(t.clone(), log_), cache,
+                            T.cache_logical(cfg))
+    meshed_params = tree_map(lambda t, log_: plan.ctx.distribute(t, log_), params,
+                             T.param_logical(cfg))
+    log(f"{tag} {cfg.n_layers} layers, cache {tree_bytes(cache) / 1e9:.4g} GB "
+        f"({LONG_CACHE} tokens), kv_seq over {plan.cache_rules.rules['kv_seq']!r}, sp={plan.sp}")
+    decode, plain_decode = serve.make_decode_fn(plan), serve.make_decode_fn(plain_plan)
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    wants, walls, counts = [], {"sp": [], "plain": []}, {}
+    # each path in a loop of its own, its counts set to 0 just before it
+    reset_counts()
+    for i in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        want, cache = plain_decode(params, tokens[i], cache, LONG_CACHE - LONG_STEPS + i)
+        torch.cuda.synchronize()
+        walls["plain"].append(time.perf_counter() - t0)
+        wants.append(want)
+    counts["plain"] = read_counts()
+    errs = []
+    reset_counts()
+    for i in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        got, meshed_cache = decode(meshed_params, tokens[i], meshed_cache,
+                                   LONG_CACHE - LONG_STEPS + i)
+        got = got.full_tensor()
+        torch.cuda.synchronize()
+        walls["sp"].append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(got).all()), f"{tag} non-finite logits at step {i}")
+        errs.append(rel_l2(got.float(), wants[i].float()))
+    counts["sp"] = read_counts()
+    mean = {k: sum(v) / len(v) * 1e3 for k, v in walls.items()}
+    log(f"{tag} decode rel L2 per step {[f'{e:.2e}' for e in errs]}; ms a step: sp "
+        f"{mean['sp']:.1f}, unmeshed {mean['plain']:.1f}; launches sp {counts['sp']}, "
+        f"unmeshed {counts['plain']}")
+    require(max(errs) <= MESH_REL_L2, f"{tag} rel L2 {max(errs):.3e} > {MESH_REL_L2}")
+    for path, n in counts.items():
+        require(n["moe_ffn_fwd"] == 2 * LONG_STEPS * moe_layers,
+                f"{tag} {path} decode: {n['moe_ffn_fwd']} moe_ffn_fwd launches, not "
+                f"2 x {LONG_STEPS} steps x {moe_layers} MoE layers")
+    del params, meshed_params, cache, meshed_cache, wants
+    torch.cuda.empty_cache()
+    return {"rel_l2": errs, "sp_step_ms": mean["sp"], "plain_step_ms": mean["plain"],
+            "launches": counts["sp"], "plain_launches": counts["plain"]}
+
+
+def mesh_compress(dev, mesh) -> dict:
+    """Phase 9d: ``compressed_psum`` over Qwen3-1.7B's gradient tree (the
+    gradients of one 2 x 512 batch) through NCCL, against
+    ``dequantize(*quantize(g + r)[:2])`` (one rank: the mean is its own
+    dequantized lanes), bit for bit."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.init import tree_leaves, tree_map
+    from repro_torch.optim import compress
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    params = T.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)
+    _, _, grads = train.loss_and_grads(params, {"tokens": tokens, "labels": tokens}, cfg)
+    del params
+    residuals = tree_map(lambda g: torch.randn(g.shape, generator=gen, device=dev) * 1e-4,
+                         grads)
+    t0 = time.perf_counter()
+    mean, new_res = compress.compressed_psum(grads, residuals, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = 0
+    for g, r, got, got_r in zip(tree_leaves(grads), tree_leaves(residuals), tree_leaves(mean),
+                                tree_leaves(new_res)):
+        q, s = compress.quantize(g.float() + r)
+        want = compress.dequantize(q, s).to(g.dtype)
+        same += bool(torch.equal(got, want)) and bool(
+            torch.equal(got_r, g.float() + r - compress.dequantize(q, s)))
+    n = len(tree_leaves(grads))
+    log(f"[mesh compressed_psum] {n} gradient leaves of {cfg.name} through NCCL in "
+        f"{secs * 1e3:.1f} ms: {same} of {n} bitwise equal to dequantize(quantize(g + r))")
+    require(same == n, f"compressed_psum: {n - same} leaves differ")
+    return {"leaves": n, "ms": secs * 1e3}
+
+
+def mesh_dryrun() -> dict:
+    """Phase 9e: the dry run of DRYRUN_CELLS on the (16, 16) mesh in its own
+    process (its ``fake`` group cannot share this one with NCCL), then
+    ``table_roofline`` on its cells."""
+    import tempfile
+
+    from repro_torch.launch import study
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cells = os.path.join(tmp, "cells")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        # one process for every cell: the CLI once a cell, its exit codes summed
+        code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+                f"sys.exit(sum(dryrun.main(['--arch', a, '--shape', s, '--mesh', 'single', "
+                f"'--out', {cells!r}]) for a, s in {DRYRUN_CELLS!r}))\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                              text=True, timeout=600, cwd=tmp)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if line.startswith("["):
+                log(f"[mesh dryrun] {line}")
+        require(proc.returncode == 0, f"dry run of {DRYRUN_CELLS} failed: "
+                f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        rows = study.table_roofline(src=cells, out=os.path.join(tmp, "bench"))
+    require(len(rows) == len(DRYRUN_CELLS), f"table_roofline gave {len(rows)} rows")
+    log(json.dumps({"table_roofline": rows}))
+    return {"wall_s": secs, "rows": rows}
+
+
+def phase_mesh(dev, unmeshed: dict) -> dict:
+    """Phase 9: the meshed programs on a (1, 1) ("data", "model") mesh of
+    one NCCL rank (a ``file://`` store under a temporary directory); the
+    group is destroyed before the report."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_host_mesh(1, 1, device_type="cuda")
+            out = {"serving": mesh_serving(dev, mesh, unmeshed),
+                   "training": mesh_training(dev, mesh),
+                   "long_decode": mesh_long_decode(dev, mesh),
+                   "compress": mesh_compress(dev, mesh)}
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["dryrun"] = mesh_dryrun()
+    log(f"[mesh] phase 9 in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2520,7 +2854,7 @@ def phase_training(dev) -> dict:
     cfg = get_config(TRAIN_ARCH)
     require(cfg.remat == "full", f"{cfg.name} trains with remat={cfg.remat!r}, not 'full'")
     tag = f"[training {cfg.name}]"
-    plan = train.default_plan(cfg, dev, accum_steps=TRAIN_ACCUM, warmup_steps=TRAIN_LR_WARMUP,
+    plan = train.default_plan(cfg, device=dev, accum_steps=TRAIN_ACCUM, warmup_steps=TRAIN_LR_WARMUP,
                               total_steps=TRAIN_STEPS)
     data = RepeatedBatch(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                                 global_batch=TRAIN_BATCH, seed=0)))
@@ -2606,7 +2940,7 @@ def grad_check(dev, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def time_flash_bwd(dev, report, shape) -> dict:
+def time_flash_bwd(dev, report, shape, phase1=True) -> dict:
     """``flash_dkv`` and ``flash_dq`` timed and held against their plain
     versions at ``shape`` (B, Hq, Hkv, S, D, causal, window); SDPA's
     backward (forward and backward minus forward) beside them; their
@@ -2617,7 +2951,7 @@ def time_flash_bwd(dev, report, shape) -> dict:
 
     b, hq, hkv, s_, d, causal, _ = shape
     q, k, v = flash_inputs(dev, b, hq, hkv, s_, s_, d, seed=2)
-    t = check_flash_bwd(dev, report, shape, time_it=True, qkv=(q, k, v))
+    t = check_flash_bwd(dev, report, shape, time_it=True, qkv=(q, k, v), phase1=phase1)
     gen = torch.Generator(device=dev).manual_seed(1)
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -2936,7 +3270,8 @@ def check_shares(kernels: list[dict]) -> None:
     for k in kernels:
         pairs = [("", k["bound_ms"], k["ms"])]
         pairs += [(f" {row['shape']}", row["bound_ms"], row["ms"])
-                  for row in k.get("more_shapes", []) + k.get("regimes", [])]
+                  for row in k.get("more_shapes", []) + k.get("regimes", []) +
+                  k.get("head_dims", [])]
         for prefix in ("decode", "large_group"):
             if f"{prefix}_ms" in k:
                 pairs.append((f" {prefix}", k[f"{prefix}_bound_ms"], k[f"{prefix}_ms"]))
@@ -2987,12 +3322,19 @@ def main() -> int:
                  {"mixtral-8x22b": mixtral["moe_shapes"], "kimi-k2-1t-a32b": kimi["moe_shapes"]},
                  report)
     examples = phase_examples()
+    meshed = phase_mesh(dev, serving["unmeshed"])
     smi = nvidia_smi()
     runs = {"qwen3-8b": serving, "mamba2-1.3b": mamba, "mixtral-8x22b": mixtral,
             "kimi-k2-1t-a32b": kimi, JAMBA: jamba, VISION: vision, SEAMLESS: seamless,
             "qwen3-1.7b training": training,
             "train_early_termination example": examples["train"],
-            "cluster_schedule example": examples["cluster"]}
+            "cluster_schedule example": examples["cluster"],
+            **{name: run for name, run in examples.items() if name.startswith("serve_smoke")},
+            "qwen3-8b meshed": meshed["serving"],
+            "qwen3-1.7b meshed training": meshed["training"]["meshed"],
+            "jamba long_500k sp decode": meshed["long_decode"],
+            "jamba long_500k unmeshed decode": {
+                "launches": meshed["long_decode"]["plain_launches"]}}
 
     def by_path(name):
         return {path: run["launches"][name] for path, run in runs.items()
@@ -3038,7 +3380,8 @@ def main() -> int:
                                        "large_group_bound_ms", "large_group_bound_terms_ms",
                                        "bound_term", "bound_terms_ms", "bound_ms_full_decode",
                                        "bound_ms_cuda_cores", "optimal_shape",
-                                       "optimal_shape_ms", "optimal_cell", "regimes")
+                                       "optimal_shape_ms", "optimal_cell", "regimes",
+                                       "head_dims")
                if key in r},
             "phase1_shape": r["phase1_shape"], "phase1_ms": r["phase1_ms"],
             "phase1_plain_ms": r["phase1_plain_ms"],
@@ -3051,6 +3394,8 @@ def main() -> int:
                                  for name, run in ((JAMBA, jamba), (VISION, vision),
                                                    (SEAMLESS, seamless))},
                     "examples": examples}))
+    log(json.dumps({"mesh": {k: v for k, v in meshed.items() if k != "dryrun"},
+                    "dryrun_wall_s": meshed["dryrun"]["wall_s"]}, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

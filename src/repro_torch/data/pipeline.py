@@ -2,9 +2,8 @@
 
 The counterpart of ``repro/data/pipeline.py``: pure NumPy, so the same
 (seed, step) gives the same arrays in both packages, array for array.
-The trainer moves a batch to its device (:mod:`repro_torch.launch.train`).
-The reference's ``make_batch_specs`` (JAX stand-ins for its dry run)
-waits with the dry run (ROADMAP Queue 1 item 8).
+The trainer moves a batch to its device (:mod:`repro_torch.launch.train`);
+:func:`make_batch_specs` gives the dry run's ``meta`` stand-ins.
 
 Design goals (scale-out):
 
@@ -31,7 +30,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["DataConfig", "SyntheticLM", "TokenFileDataset"]
+__all__ = ["DataConfig", "SyntheticLM", "TokenFileDataset", "make_batch_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +93,12 @@ class TokenFileDataset:
         toks = np.stack([self.tokens[s : s + cfg.seq_len] for s in starts])
         labels = np.stack([self.tokens[s + 1 : s + 1 + cfg.seq_len] for s in starts])
         return {"tokens": toks.astype(np.int32), "labels": labels.astype(np.int32)}
+
+
+def make_batch_specs(cfg: DataConfig) -> dict:
+    """``meta`` int32 tensors of a batch's shapes (dry-run stand-ins;
+    nothing allocated)."""
+    import torch
+
+    shape = (cfg.global_batch, cfg.seq_len)
+    return {k: torch.empty(shape, dtype=torch.int32, device="meta") for k in ("tokens", "labels")}

@@ -6,8 +6,8 @@ The counterpart of ``examples/cluster_schedule.py`` on the port: the
 same pool, hazards, sizes, random draws and printout, on
 :class:`repro_torch.cluster.manager.ClusterManager` and the port's
 :class:`~repro_torch.launch.train.Trainer`.  Each job is a reduced-config
-architecture from the pool (its SMOKE config, with head dim 64 on the
-CUDA card, the smallest the attention kernels take); a stage runs actual
+architecture from the pool (its SMOKE config, on the card as on the
+CPU); a stage runs actual
 optimizer steps, and the metric gate terminates jobs whose loss stops
 improving — so the scheduler's size distributions come from the jobs'
 stage history, and sojourn times are real wall-clock seconds.  Run::
@@ -18,7 +18,6 @@ stage history, and sojourn times are real wall-clock seconds.  Run::
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -30,7 +29,6 @@ from repro_torch.core import policies
 from repro_torch.core.jobs import JobSpec
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.examples.train_early_termination import KERNEL_HEAD_DIM
 from repro_torch.launch.train import Trainer, default_plan
 from repro_torch.obs import MetricsRegistry, TraceRecorder, format_snapshot
 
@@ -44,11 +42,9 @@ def make_real_runner(arch: str, steps_per_stage: int, min_improvement: float, de
     """A stage = real train steps on ``device``; gate on loss improvement."""
     device = resolve_device(device)
     cfg = get_smoke(arch)
-    if device.type == "cuda":
-        cfg = dataclasses.replace(cfg, head_dim=KERNEL_HEAD_DIM)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                   global_batch=4))
-    trainer = Trainer(default_plan(cfg, device), data, None)
+    trainer = Trainer(default_plan(cfg, device=device), data, None)
     state = {"last": np.inf}
 
     def runner(job: TrainingJob, stage: int):

@@ -7,10 +7,8 @@ boundary a metric gate checks training-loss improvement and terminates
 unpromising jobs early (the paper's early termination), checkpointing
 either way (fault tolerance).
 
-``--preset tiny`` (the default) is Qwen3-1.7B's SMOKE config; on the
-CUDA card its head dim is 64 instead of 32, the smallest head dim the
-attention kernels take (on the CPU it is the reference's config).
-``--preset 100m`` trains a ~100M-parameter Qwen3-style model (Qwen3-1.7B's
+``--preset tiny`` (the default) is Qwen3-1.7B's SMOKE config (head dim
+32), on the card as on the CPU.  ``--preset 100m`` trains a ~100M-parameter Qwen3-style model (Qwen3-1.7B's
 head dim, 128).  Run::
 
     python -m repro_torch.examples.train_early_termination --device cpu
@@ -31,20 +29,13 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import Trainer, default_plan
 
-__all__ = ["KERNEL_HEAD_DIM", "make_cfg", "main"]
-
-#: The smallest head dim the attention kernels take
-#: (``flash_attention.kernel.KERNEL_HEAD_DIMS``).
-KERNEL_HEAD_DIM = 64
+__all__ = ["make_cfg", "main"]
 
 
-def make_cfg(preset: str, device=None):
-    """The preset's config; ``tiny`` takes KERNEL_HEAD_DIM on the card."""
+def make_cfg(preset: str):
+    """The preset's config, the same on every device."""
     if preset == "tiny":
-        cfg = get_smoke("qwen3-1.7b")
-        if resolve_device(device).type == "cuda":
-            cfg = dataclasses.replace(cfg, head_dim=KERNEL_HEAD_DIM)
-        return cfg
+        return get_smoke("qwen3-1.7b")
     if preset == "100m":
         # ~100M params: qwen3 geometry scaled down
         return dataclasses.replace(
@@ -59,7 +50,7 @@ def main(argv: list[str] | None = None) -> list[float]:
     """Run the job; returns its per-stage losses."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="tiny", choices=["tiny", "100m"],
-                    help="tiny: Qwen3-1.7B SMOKE (head dim 64 on the card, 32 on the CPU); "
+                    help="tiny: Qwen3-1.7B SMOKE (head dim 32); "
                          "100m: a ~100M-parameter Qwen3 (head dim 128)")
     ap.add_argument("--stages", type=int, default=3)
     ap.add_argument("--steps-per-stage", type=int, default=20)
@@ -71,7 +62,7 @@ def main(argv: list[str] | None = None) -> list[float]:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = make_cfg(args.preset, device)
+    cfg = make_cfg(args.preset)
     n_params = cfg.param_count()
     print(f"model: {cfg.name}  params={n_params/1e6:.1f}M  "
           f"stages={args.stages} x {args.steps_per_stage} steps")
@@ -80,7 +71,7 @@ def main(argv: list[str] | None = None) -> list[float]:
                                   global_batch=args.batch))
     with tempfile.TemporaryDirectory() as ckpt_dir:
         ckpt = CheckpointManager(ckpt_dir, keep=2)
-        plan = default_plan(cfg, device)
+        plan = default_plan(cfg, device=device)
         trainer = Trainer(plan, data, ckpt, ckpt_every=args.steps_per_stage)
 
         stage_losses = []

@@ -10,7 +10,11 @@
 // 128-byte swizzle that TMA writes and wgmma reads: a (rows, D) bf16 tile
 // is ceil(D / 64) panels of rows x 128 bytes, each 1024-byte aligned.  At
 // D = 112 the tensor map's inner extent is 112 and the second panel's boxes
-// reach column 127, so TMA fills columns 112-127 with zeros.
+// reach column 127, so TMA fills columns 112-127 with zeros; at D = 16 and
+// D = 32 the one panel's boxes reach column 63 past an inner extent of 16 or
+// 32 (rows of 32 or 64 bytes in global memory, a multiple of the 16 bytes
+// TMA asks of a stride), so the panel keeps the 128-byte swizzle and TMA
+// fills the columns past D with zeros.
 //
 // ptxas serializes every wgmma of a kernel (info C7518) when a wgmma or its
 // registers sit on a path it cannot prove warp-uniform, or when other
@@ -260,6 +264,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 16, f32) += A (64 x 16, registers) B (16 x 16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16, registers) B (16 x 32, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
@@ -338,7 +375,11 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (D == 64) {
+  if constexpr (D == 16) {
+    wgmma_rs_n16(d, a, desc_b);
+  } else if constexpr (D == 32) {
+    wgmma_rs_n32(d, a, desc_b);
+  } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, desc_b);
   } else if constexpr (D == 112) {
     wgmma_rs_n112(d, a, desc_b);

@@ -2,7 +2,8 @@
 ``flash_fwd.cu`` (another checkout's) on the card: the instructions of
 the kernels (``cuobjdump -sass``), their ptxas lines, their outputs bit
 for bit and their times, at the serving shape (B=4, Hq=32, Hkv=8,
-S=2048, causal) and head dims 128, 112 and 64.  Given another
+S=2048, causal) and every head dim of ``kernel.KERNEL_HEAD_DIMS`` (the
+other source must take them all).  Given another
 ``flash_bwd.cu`` as well, it holds the instructions of this tree's
 backward kernels against that one's too.
 

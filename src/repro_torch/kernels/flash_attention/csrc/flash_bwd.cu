@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of repro/kernels/flash_attention/kernel.py:
 //   flash_dkv (_dkv_kernel, :267) -> flash_dkv_launch
 //   flash_dq  (_dq_kernel,  :364) -> flash_dq_launch
-// Layout (B, H, S, D), row-major, as flash_fwd.cu, with D in {64, 112, 128}.
+// Layout (B, H, S, D), row-major, as flash_fwd.cu, with D in {16, 32, 64,
+// 112, 128} (D = 16 and 32 one zero-filled panel, as in flash_fwd.cu).
 // Inputs q, k, v, dO in bf16, the forward's log-sum-exp and delta =
 // rowsum(dO * O) (B, Hq, Sq) in f32.  Outputs dK, dV (B, Hkv, Skv, D) and dQ
 // (B, Hq, Sq, D) in f32, the Pallas kernels' output type.  GQA: query head
@@ -577,7 +578,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 
 }  // namespace flash_bwd
 
-// dK, dV of attention for bf16 (B, H, S, D) q, k, v, dO with D in {64, 112, 128},
+// dK, dV of attention for bf16 (B, H, S, D) q, k, v, dO with D in {16, 32, 64, 112, 128},
 // 16-byte aligned, and f32 LSE and delta (B, Hq, Sq); writes f32 dK, dV
 // (B, Hkv, Skv, D).  Returns a cudaError_t as int (cudaErrorInvalidValue for
 // any other D or a tensor map that does not encode, cudaErrorNotSupported
@@ -587,15 +588,18 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, con
                                 int batch, int hq, int hkv, int sq, int skv, int d, float scale,
                                 int causal, int has_window, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return flash_bwd::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq,
-                                      skv, scale, causal, has_window, window, st);
-  if (d == 112)
-    return flash_bwd::launch_dkv<112>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq,
-                                      skv, scale, causal, has_window, window, st);
-  if (d == 64)
-    return flash_bwd::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq,
-                                     skv, scale, causal, has_window, window, st);
+#define FLASH_DKV_CASE(D)                                                                  \
+  case D:                                                                                  \
+    return flash_bwd::launch_dkv<D>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, \
+                                    skv, scale, causal, has_window, window, st);
+  switch (d) {
+    FLASH_DKV_CASE(128)
+    FLASH_DKV_CASE(112)
+    FLASH_DKV_CASE(64)
+    FLASH_DKV_CASE(32)
+    FLASH_DKV_CASE(16)
+  }
+#undef FLASH_DKV_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -605,15 +609,18 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v, cons
                                int hq, int hkv, int sq, int skv, int d, float scale, int causal,
                                int has_window, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return flash_bwd::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,
-                                     scale, causal, has_window, window, st);
-  if (d == 112)
-    return flash_bwd::launch_dq<112>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,
-                                     scale, causal, has_window, window, st);
-  if (d == 64)
-    return flash_bwd::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,
-                                    scale, causal, has_window, window, st);
+#define FLASH_DQ_CASE(D)                                                                    \
+  case D:                                                                                   \
+    return flash_bwd::launch_dq<D>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, skv,  \
+                                   scale, causal, has_window, window, st);
+  switch (d) {
+    FLASH_DQ_CASE(128)
+    FLASH_DQ_CASE(112)
+    FLASH_DQ_CASE(64)
+    FLASH_DQ_CASE(32)
+    FLASH_DQ_CASE(16)
+  }
+#undef FLASH_DQ_CASE
   return (int)cudaErrorInvalidValue;
 }
 

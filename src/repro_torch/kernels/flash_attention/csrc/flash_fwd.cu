@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:163
 // (flash_fwd, _fwd_kernel) -> flash_fwd_launch.  Layout (B, H, S, D),
-// row-major, D in {64, 112, 128}.  Outputs O (B, Hq, Sq, D) in bf16 and the
+// row-major, D in {16, 32, 64, 112, 128}.  Outputs O (B, Hq, Sq, D) in bf16 and the
 // log-sum-exp (B, Hq, Sq) in f32.  GQA: query head h reads KV head
 // h / (Hq / Hkv), so K and V are never repeated per query head.
 //
@@ -38,6 +38,8 @@
 // three K/V stages is 224 KB of the 227 KB).  At D = 112 the tensor maps' inner
 // extent is 112 and the second panel's boxes reach column 127, so TMA fills
 // columns 112-127 with zeros: Q K^T takes 7 k-steps and P V has N = 112.
+// D = 16 and D = 32 are one panel by the same rule (TMA fills columns D-63
+// with zeros): Q K^T takes 1 or 2 k-steps and P V has N = 16 or 32.
 // The two warpgroups' softmax and products interleave on the SM's tensor
 // cores; a CTA takes the causal query blocks with the most key tiles first
 // (the query-block index runs backwards, on the grid's slowest axis).
@@ -84,7 +86,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct Tiles {
   static constexpr int kPanels = (D + kPanelCols - 1) / kPanelCols;  // 1 or 2
-  static constexpr int kSteps = D / 16;           // k-steps of Q K^T: 4, 7 or 8
+  static constexpr int kSteps = D / 16;           // k-steps of Q K^T: 1, 2, 4, 7 or 8
   static constexpr int kBytes = kPanels * kPanelBytes;  // a Q, K or V tile
   static constexpr int kQ = 0;                    // offsets in the 1024-aligned base
   static constexpr int kK = kBytes;
@@ -404,7 +406,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace flash
 
 // O, LSE = attention(Q, K, V) for bf16 (B, H, S, D) tensors with D in
-// {64, 112, 128}, 16-byte aligned; returns a cudaError_t as int
+// {16, 32, 64, 112, 128}, 16-byte aligned; returns a cudaError_t as int
 // (cudaErrorInvalidValue for any other D or a tensor map that does not
 // encode, cudaErrorNotSupported without cuTensorMapEncodeTiled).  No
 // synchronisation.
@@ -413,15 +415,18 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 int d, float scale, int causal, int has_window, int window,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return flash::launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal,
-                              has_window, window, st);
-  if (d == 112)
-    return flash::launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal,
-                              has_window, window, st);
-  if (d == 64)
-    return flash::launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal,
-                             has_window, window, st);
+#define FLASH_FWD_CASE(D)                                                                  \
+  case D:                                                                                  \
+    return flash::launch<D>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal,       \
+                            has_window, window, st);
+  switch (d) {
+    FLASH_FWD_CASE(128)
+    FLASH_FWD_CASE(112)
+    FLASH_FWD_CASE(64)
+    FLASH_FWD_CASE(32)
+    FLASH_FWD_CASE(16)
+  }
+#undef FLASH_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,8 @@ sliding-window masking (key j visible to query i iff ``j <= i`` and
 log-sum-exp (B, Hq, Sq).
 
 Dispatch is by device: a CUDA tensor launches the kernel (bf16, head dim
-64, 112 or 128: every registered config at full width) or raises; a CPU
+16, 32, 64, 112 or 128: every registered config, SMOKE included) or
+raises; a CPU
 tensor runs the plain PyTorch version, :func:`flash_fwd_torch`, which
 walks the forward kernel's (FWD_BLOCK_Q, FWD_BLOCK_K) tiles with the same
 online softmax, block skipping and NEG_INF / 1e-30 conventions, so the
@@ -61,7 +62,7 @@ DQ_BLOCK_K = 64
 #: Large-but-finite mask value: avoids NaN from (-inf) - (-inf).
 NEG_INF = -1e30
 #: Head dims the kernels are compiled for.
-KERNEL_HEAD_DIMS = (64, 112, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 #: Kernel launches since the last reset (set to 0 to reset).
 launches = {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
 

@@ -11,6 +11,10 @@ of its oracle.  The reference has no backward kernel, and neither has
 the port: the backward is three more batched products per input.  The
 oracle rounds the gate and up products to the working type before the
 activation (ROADMAP R5), in the backward exactly as in the reference's.
+
+``meta`` tensors (the dry run) take the oracle, for its shapes.  Under a
+mesh the op never sees a DTensor: :func:`repro_torch.models.moe.moe_apply`
+calls it on each rank's local shard.
 """
 
 from __future__ import annotations
@@ -45,4 +49,7 @@ def moe_ffn(
 ) -> torch.Tensor:
     """Per-expert SwiGLU FFN; out (E, Cap, Dm) in x's type, differentiable
     in every input."""
+    if x.device.type == "meta":
+        return moe_ffn_ref(x, wg, wu, wd)
     return _MoeFFN.apply(x, wg, wu, wd)
+

@@ -13,6 +13,14 @@ the backward recomputes through :func:`ref.ssd_chunked` under autograd
 (``_ssd_pallas_bwd``, ``ops.py:50-58``), taking the cotangents of y and
 of the final state and giving the gradients of x, dt, A, Bm, Cm and D.
 The reference has no backward kernel, and neither has the port.
+
+Two more routes, chosen by the inputs: DTensors (a meshed model) run the
+op through ``local_map`` on each rank's shard, keeping the batch and head
+shards (every other dim gathered first: the scan needs the whole
+sequence); Bm and Cm, whose groups are not sharded, then get partial
+gradients over the ranks that split the heads.  ``meta`` tensors (the dry
+run) take :func:`ref.ssd_chunked`, whose loop over the chunks does the
+kernel's products, for its shapes and FLOPs.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 
 from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.parallel.sharding import is_dtensor
 
 __all__ = ["ssd_scan"]
 
@@ -63,4 +72,29 @@ def ssd_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan; returns (y (B, S, H, P) in x's type, final state
     (B, H, N, P) float32), both differentiable in every input."""
+    if is_dtensor(x):
+        return _meshed(x, dt, A, Bm, Cm, D, chunk)
+    if x.device.type == "meta":
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
     return _SSDScan.apply(x, dt, A, Bm, Cm, D, chunk)
+
+
+def _meshed(x, dt, A, Bm, Cm, D, chunk: int):
+    """:func:`ssd_scan` on DTensors, shard by shard (module doc)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.parallel.sharding import contiguous_grads, local_call
+
+    xp = tuple(a if a in (Shard(0), Shard(2)) else Replicate() for a in x.placements)
+    bp = tuple(Shard(0) if a == Shard(0) else Replicate() for a in xp)
+    hp = tuple(Shard(0) if a == Shard(2) else Replicate() for a in xp)  # (H,) vectors
+    bgrad = tuple(Partial() if a == Shard(2) else b for a, b in zip(xp, bp))
+    hgrad = tuple(Partial() if a == Shard(0) else h for a, h in zip(xp, hp))
+    state = tuple(Shard(0) if a == Shard(0) else Shard(1) if a == Shard(2) else Replicate()
+                  for a in xp)
+
+    def local(*args):
+        return ssd_scan(*contiguous_grads(*args), chunk=chunk)
+
+    return local_call(local, (x, dt, A, Bm, Cm, D), (xp, xp, hp, bp, bp, hp), (xp, state),
+                      x.device_mesh, (xp, xp, hgrad, bgrad, bgrad, hgrad))

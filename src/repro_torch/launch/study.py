@@ -12,6 +12,7 @@ the same seeds, the same shared ``rng`` and the same row keys:
   table_eval_perf      -> the seed (materialised) static evaluator vs the fused kernel
   table_eval_dynamic   -> the same for SR/SERPT on one server
   table_eval_mc        -> streamed Monte Carlo vs the materialised sample table
+  table_roofline       -> the dry run's roofline terms, a row a (arch, shape, mesh)
 
 The numerical study (Figure 1, Tables IV-XIV) is thousands of
 ``evaluate_many`` calls at N = 3-8 jobs; they run on the CUDA card
@@ -35,11 +36,18 @@ trace jobs).  Each table prints as markdown and is written to
 
     python -m repro_torch.launch.study --table sojourn          # on the card
     python -m repro_torch.launch.study --table eval_mc --smoke --device cpu
+    python -m repro_torch.launch.study --table roofline   # after launch.dryrun
+
+``table_roofline`` reads ``artifacts/dryrun_torch/*.json`` (what
+``python -m repro_torch.launch.dryrun`` writes), never the reference's
+``artifacts/dryrun``; its terms model a machine of H100 cards and are not
+measurements (:mod:`repro_torch.launch.roofline`).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import time
@@ -67,11 +75,14 @@ __all__ = [
     "table_eval_perf",
     "table_eval_dynamic",
     "table_eval_mc",
+    "table_roofline",
     "main",
 ]
 
 #: Default output directory, beside the reference's ``artifacts/bench``.
 OUT = os.path.join("artifacts", "bench_torch")
+#: Where ``python -m repro_torch.launch.dryrun`` writes its cells.
+DRYRUN = os.path.join("artifacts", "dryrun_torch")
 
 STUDY_ALGS = ("optimal", "rank", "serpt", "sr", "random")
 
@@ -520,6 +531,37 @@ def table_eval_mc(full: bool = False, smoke: bool = False, device=None, out: str
 
 
 # ---------------------------------------------------------------------------
+# Roofline aggregation (reads the dry run's cells)
+# ---------------------------------------------------------------------------
+
+
+def table_roofline(full: bool = False, out: str = OUT, src: str = DRYRUN):
+    """The dry run's cells as the roofline table: per (arch, shape, mesh)
+    the compute, memory and collective terms in ms on the modelled H100
+    machine, the dominant one, the compute share of the bound, the useful
+    share of the executed FLOPs and the state a chip holds."""
+    from repro_torch.launch.roofline import RooflineReport
+
+    paths = sorted(glob.glob(os.path.join(src, "*.json")))
+    if not paths:
+        print(f"  (no dry-run cells in {src}; run `python -m repro_torch.launch.dryrun` first)")
+        return []
+    report = RooflineReport.load(paths)
+    print(report.to_markdown())
+    rows = [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+             "compute_ms": r["roofline"]["compute"] * 1e3,
+             "memory_ms": r["roofline"]["memory"] * 1e3,
+             "collective_ms": r["roofline"]["collective"] * 1e3,
+             "dominant": r["roofline"]["dominant"],
+             "roofline_fraction": r["roofline"]["roofline_fraction"],
+             "useful_flops_ratio": r["useful_flops_ratio"],
+             "state_gib_per_chip": r["state_bytes_per_chip"] / 2**30}
+            for r in report.rows]
+    _save("table_roofline", {"rows": rows, "cells": report.rows}, out)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def _fmt(rows: list[dict]) -> str:
@@ -548,6 +590,7 @@ TABLES = {
     "eval_perf": table_eval_perf,
     "eval_dynamic": table_eval_dynamic,
     "eval_mc": table_eval_mc,
+    "roofline": table_roofline,
 }
 
 #: Tables whose evaluations run on ``--device``; the rest are host code.

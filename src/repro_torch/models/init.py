@@ -5,8 +5,8 @@ every module contributes a nested dict of :class:`ParamSpec`;
 :func:`materialize` turns a spec tree into tensors on an explicit device
 from an explicit ``torch.Generator``, and :func:`from_reference` carries
 a parameter tree of the JAX package (as NumPy arrays) across, so that
-both packages compute with the same numbers.  The logical axes are kept
-for the sharding of a later slice; nothing reads them yet.
+both packages compute with the same numbers.  The logical axes place
+each leaf on a mesh (:mod:`repro_torch.parallel.sharding`).
 """
 
 from __future__ import annotations
@@ -101,12 +101,16 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
     return out
 
 
-def materialize(spec_tree: Any, generator: torch.Generator, device) -> Any:
+def materialize(spec_tree: Any, generator: torch.Generator, device, place=None) -> Any:
     """Instantiate every ParamSpec leaf on ``device``, drawing from
     ``generator`` (which must live on ``device``) leaf by leaf in sorted
     key order, and a large leaf slice by slice (:data:`DRAW_ELEMENTS`).  The numbers differ from the JAX package's for the same
-    seed; :func:`from_reference` is how the tests share weights."""
-    return tree_map(lambda s: _init_one(s, generator, device), spec_tree)
+    seed; :func:`from_reference` is how the tests share weights.
+    ``place(tensor, spec)``, if given, takes each leaf as soon as it is
+    drawn (a meshed init keeps only its shard of it)."""
+    if place is None:
+        return tree_map(lambda s: _init_one(s, generator, device), spec_tree)
+    return tree_map(lambda s: place(_init_one(s, generator, device), s), spec_tree)
 
 
 def _to_torch(arr, spec: ParamSpec, device) -> torch.Tensor:

@@ -12,6 +12,17 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import ParamSpec
+from repro_torch.parallel.sharding import (
+    ShardingCtx,
+    all_reduce,
+    is_dtensor,
+    local_call,
+    replicate_like,
+    replicated_sum,
+    shard_start,
+)
+
+_NO_MESH = ShardingCtx.none()
 
 __all__ = [
     "rms_norm",
@@ -39,6 +50,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     # a Python-number base: a tensor made from theta on the card would be a
     # host-to-device copy, which waits for the stream on every call
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    freq = replicate_like(freq, positions)
     ang = positions[..., None].float() * freq  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
@@ -60,11 +72,12 @@ def mlp_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h_g = x @ p["wg"]
-    h_u = x @ p["wu"]
+def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardingCtx = _NO_MESH) -> torch.Tensor:
+    h_g = ctx.constrain(x @ ctx.weight(p["wg"], ("embed", "mlp")), ("batch", "seq", "act_mlp"))
+    h_u = ctx.constrain(x @ ctx.weight(p["wu"], ("embed", "mlp")), ("batch", "seq", "act_mlp"))
     act = (F.silu(h_g.float()) * h_u.float()).to(x.dtype)
-    return act @ p["wd"]
+    out = act @ ctx.weight(p["wd"], ("mlp", "embed"))
+    return ctx.constrain(out, ("batch", "seq", "act_embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +97,45 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens].to(cfg.dtype)
+def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 ctx: ShardingCtx = _NO_MESH) -> torch.Tensor:
+    if is_dtensor(tokens):
+        x = _embed_meshed(ctx.weight(p["tok"], ("vocab", "embed")), tokens)
+    else:
+        x = p["tok"][tokens]
+    return ctx.constrain(x.to(cfg.dtype), ("batch", "seq", "act_embed"))
 
 
-def unembed(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed_meshed(tok, tokens):
+    """The lookup of DTensor ``tokens`` in a DTensor table (the vocabulary
+    sharded, its embed dim whole), vocab-parallel and shard by shard: each
+    rank looks up the tokens of its own slice of the vocabulary (zeros for
+    the others), a partial sum over the ranks that split it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = tok.device_mesh
+    tp = tuple(Shard(0) if a == Shard(0) else Replicate() for a in tok.placements)
+    ip = tuple(Replicate() if t == Shard(0) else Shard(0) if a == Shard(0) else Replicate()
+               for a, t in zip(tokens.placements, tp))
+    out = tuple(Partial() if t == Shard(0) else i for t, i in zip(tp, ip))
+    grad = tuple(t if t == Shard(0) else Partial() if i == Shard(0) else Replicate()
+                 for t, i in zip(tp, ip))
+    v_off, v_loc = shard_start(tok.shape[0], mesh, tp, 0)
+
+    def local(t, ids):
+        mine = (ids >= v_off) & (ids < v_off + v_loc)
+        return t[(ids - v_off).clamp(0, v_loc - 1)] * mine[..., None].to(t.dtype)
+
+    return local_call(local, (tok, tokens), (tp, ip), out, mesh, (grad, ip))
+
+
+def unembed(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            ctx: ShardingCtx = _NO_MESH) -> torch.Tensor:
     """Logits over the padded vocabulary, in float32 (as the reference's
     ``layers.py:91``); the product itself runs in the working type."""
     w = p["head"] if "head" in p else p["tok"].T
-    return (x @ w).float()
+    w = ctx.weight(w, ("embed", "vocab"))
+    return ctx.constrain((x @ w).float(), ("batch", "seq", "act_vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -105,12 +148,44 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy in f32; labels < 0 or ~valid are masked."""
     if valid is None:
         valid = labels >= 0
+    if is_dtensor(logits):
+        return _cross_entropy_meshed(logits, labels, valid)
     lab = labels.clamp(min=0).long()
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, lab[..., None])[..., 0]
     nll = (lse - gold) * valid
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def _cross_entropy_meshed(logits, labels, valid) -> torch.Tensor:
+    """:func:`cross_entropy` of DTensor logits, the vocabulary sharded
+    (vocab-parallel): each rank takes the max, the sum of exponentials and
+    the gold logit over its own slice of the vocabulary, all-reduced over
+    the ranks that split it; the masked sums are then partial over the
+    batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    lp = tuple(a if a in (Shard(0), Shard(2)) else Replicate() for a in logits.placements)
+    tp = tuple(Shard(0) if a == Shard(0) else Replicate() for a in lp)
+    out = tuple(Partial() if a == Shard(0) else Replicate() for a in lp)
+    groups = [mesh.get_group(i) for i, a in enumerate(lp) if a == Shard(2)]
+    v_off, v_loc = shard_start(logits.shape[-1], mesh, lp, 2)
+
+    def local(lf, lab, valid):
+        lf = lf.float()
+        lab = lab.clamp(min=0).long()
+        m = all_reduce(lf.detach().amax(dim=-1), "max", groups)
+        sumexp = replicated_sum(torch.exp(lf - m[..., None]).sum(dim=-1), groups)
+        mine = (lab >= v_off) & (lab < v_off + v_loc)
+        gold = torch.gather(lf, -1, (lab - v_off).clamp(0, v_loc - 1)[..., None])[..., 0]
+        gold = replicated_sum(torch.where(mine, gold, 0.0), groups)
+        nll = (m + torch.log(sumexp) - gold) * valid
+        return nll.sum(), valid.sum()
+
+    nll, count = local_call(local, (logits, labels, valid), (lp, tp, tp), (out, out), mesh)
+    return nll / count.clamp(min=1)
 
 
 def chunked_cross_entropy(
@@ -133,6 +208,7 @@ def chunked_cross_entropy(
     m = torch.full((b, s), -torch.inf, dtype=torch.float32, device=x.device)
     l = torch.zeros((b, s), dtype=torch.float32, device=x.device)
     gold = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    m, l, gold = (replicate_like(t, x) for t in (m, l, gold))
     for c0 in range(0, v, chunk):
         lg = (x @ w[:, c0 : c0 + chunk]).float()  # (B, S, chunk)
         m_new = torch.maximum(m, lg.amax(dim=-1))

@@ -22,6 +22,15 @@ from repro_torch.kernels.ssd_scan.ref import ssd_decode_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import ParamSpec
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel.sharding import (
+    ShardingCtx,
+    assign,
+    is_dtensor,
+    local_call,
+    replicate_like,
+)
+
+_NO_MESH = ShardingCtx.none()
 
 __all__ = ["ssm_specs", "ssm_apply", "ssm_decode", "ssm_cache_shape"]
 
@@ -53,7 +62,8 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     (y, new_state)."""
     k = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = replicate_like(
+            torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device), x)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
@@ -73,8 +83,11 @@ def ssm_cache_shape(cfg: ModelConfig, batch: int) -> dict:
     }
 
 
-def _projections(p, x):
-    return x @ p["w_x"], x @ p["w_z"], x @ p["w_bc"], x @ p["w_dt"]
+def _projections(p, x, ctx: ShardingCtx):
+    return (x @ ctx.weight(p["w_x"], ("embed", "conv_dim")),
+            x @ ctx.weight(p["w_z"], ("embed", "conv_dim")),
+            x @ ctx.weight(p["w_bc"], ("embed", None)),
+            x @ ctx.weight(p["w_dt"], ("embed", "ssm_heads")))
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -82,10 +95,10 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x.float()).to(x.dtype)
 
 
-def _postprocess(p, y, z, cfg: ModelConfig):
+def _postprocess(p, y, z, cfg: ModelConfig, ctx: ShardingCtx):
     y = y.reshape(y.shape[0], -1, cfg.d_inner)
     y = y * _silu(z)  # gated
-    return rms_norm(y, p["norm"], cfg.norm_eps) @ p["out"]
+    return rms_norm(y, p["norm"], cfg.norm_eps) @ ctx.weight(p["out"], ("conv_dim", "embed"))
 
 
 def _bc(bc: torch.Tensor, cfg: ModelConfig):
@@ -94,11 +107,16 @@ def _bc(bc: torch.Tensor, cfg: ModelConfig):
     return bc[..., :gn].reshape(shape), bc[..., gn:].reshape(shape)
 
 
-def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = False):
+def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = False,
+              ctx: ShardingCtx = _NO_MESH):
     """Full-sequence SSD mixer over x (B, S, D); with ``return_cache`` also
     the decode cache (conv tails in the working type, float32 state)."""
     b, s, _ = x.shape
-    xs_raw, z, bc_raw, dt_raw = _projections(p, x)
+    xs_raw, z, bc_raw, dt_raw = _projections(p, x, ctx)
+    xs_raw = ctx.constrain(xs_raw, ("batch", "seq", "act_mlp"))
+    z = ctx.constrain(z, ("batch", "seq", "act_mlp"))
+    bc_raw = ctx.constrain(bc_raw, ("batch", "seq", None))
+    dt_raw = ctx.constrain(dt_raw, ("batch", "seq", "act_heads"))
     xs, conv_x_tail = _causal_depthwise_conv(xs_raw, p["conv_x"])
     bc, conv_bc_tail = _causal_depthwise_conv(bc_raw, p["conv_bc"])
     xs, bc = _silu(xs), _silu(bc)
@@ -107,27 +125,41 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool 
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(b, s, cfg.ssm_heads, cfg.ssm_headdim)
     y, state = ssd_scan(xh, dt, A, Bm, Cm, p["D"], chunk=min(cfg.ssm_chunk, s))
-    out = _postprocess(p, y, z, cfg)
+    out = _postprocess(p, y, z, cfg, ctx)
     if not return_cache:
         return out
     return out, {"conv_x": conv_x_tail.to(cfg.dtype), "conv_bc": conv_bc_tail.to(cfg.dtype),
                  "state": state}
 
 
-def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+def _decode_step(x, dt, A, Bm, Cm, D, state):
+    """:func:`ssd_decode_step`; under a mesh on each rank's shard, placed
+    as the state is (its batch and head shards kept)."""
+    if not is_dtensor(state):
+        return ssd_decode_step(x, dt, A, Bm, Cm, D, state)
+    from torch.distributed.tensor import Replicate, Shard
+
+    sp = tuple(a if a in (Shard(0), Shard(1)) else Replicate() for a in state.placements)
+    hp = tuple(Shard(0) if a == Shard(1) else Replicate() for a in sp)  # (H,) vectors
+    bp = tuple(Shard(0) if a == Shard(0) else Replicate() for a in sp)  # (B, G, N)
+    return local_call(ssd_decode_step, (x, dt, A, Bm, Cm, D, state),
+                      (sp, sp, hp, bp, bp, hp, sp), (sp, sp), state.device_mesh)
+
+
+def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+               ctx: ShardingCtx = _NO_MESH):
     """One-token SSD recurrence on x (B, 1, D); returns ``(out, cache)``
     with the cache's three tensors updated IN PLACE."""
     b = x.shape[0]
-    xs, z, bc, dt_raw = _projections(p, x)
+    xs, z, bc, dt_raw = _projections(p, x, ctx)
     xs, conv_x = _causal_depthwise_conv(xs, p["conv_x"], cache["conv_x"])
     bc, conv_bc = _causal_depthwise_conv(bc, p["conv_bc"], cache["conv_bc"])
     xs, bc = _silu(xs), _silu(bc)
     Bm, Cm = _bc(bc[:, 0], cfg)  # (B, G, N)
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])  # (B, H)
     A = -torch.exp(p["A_log"])
-    y, state = ssd_decode_step(xs[:, 0].reshape(b, cfg.ssm_heads, cfg.ssm_headdim), dt, A,
-                               Bm, Cm, p["D"], cache["state"].float())
-    cache["conv_x"].copy_(conv_x)
-    cache["conv_bc"].copy_(conv_bc)
-    cache["state"].copy_(state)
-    return _postprocess(p, y, z, cfg), cache
+    y, state = _decode_step(xs[:, 0].reshape(b, cfg.ssm_heads, cfg.ssm_headdim), dt, A,
+                            Bm, Cm, p["D"], cache["state"].float())
+    for name, t in (("conv_x", conv_x), ("conv_bc", conv_bc), ("state", state)):
+        assign(cache[name], t)
+    return _postprocess(p, y, z, cfg, ctx), cache

@@ -53,8 +53,9 @@ class OptState:
 
 def adamw_init(params: Any, cfg: OptConfig) -> OptState:
     dt = getattr(torch, cfg.moment_dtype)
-    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
-    nu = tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
+    # zeros_like: under a mesh each moment is a DTensor placed as its parameter
+    mu = tree_map(lambda p: torch.zeros_like(p, dtype=dt), params)
+    nu = tree_map(lambda p: torch.zeros_like(p, dtype=dt), params)
     return OptState(step=0, mu=mu, nu=nu)
 
 

@@ -130,17 +130,51 @@ def test_train_early_termination_trains_on_the_cpu(capsys):
     assert "model: qwen3-1.7b-smoke" in out
 
 
-def test_tiny_preset_takes_the_kernels_head_dim_on_the_card(monkeypatch):
-    """On the card the tiny preset's head dim is 64 (the kernels take 64,
-    112 and 128); on the CPU it is the reference's 32.  The 100m preset
-    keeps Qwen3-1.7B's head dim, 128, on both."""
+def _same_config(got, want) -> None:
+    import dataclasses
+
+    from repro_torch.models.config import ModelConfig
+
+    for f in dataclasses.fields(ModelConfig):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+def test_tiny_preset_takes_the_kernels_head_dim_on_the_card():
+    """The presets are the reference's configs on every device: tiny is
+    Qwen3-1.7B's SMOKE config, whose head dim 32 the attention kernels
+    take, and 100m keeps Qwen3-1.7B's head dim, 128."""
     from repro_torch.kernels.flash_attention import kernel as FK
 
-    assert train_early_termination.make_cfg("tiny", "cpu").hd == 32
-    assert train_early_termination.KERNEL_HEAD_DIM == min(FK.KERNEL_HEAD_DIMS)
+    ref = _load("train_early_termination")
+    for preset in ("tiny", "100m"):
+        _same_config(train_early_termination.make_cfg(preset), ref.make_cfg(preset))
+    assert train_early_termination.make_cfg("tiny").hd == 32
+    assert train_early_termination.make_cfg("100m").hd == 128
+    assert {32, 128} <= set(FK.KERNEL_HEAD_DIMS)
+    assert not hasattr(train_early_termination, "KERNEL_HEAD_DIM")
+
+
+def test_cluster_pool_takes_the_reference_configs_on_every_device(monkeypatch):
+    """The pool's runners train each arch's SMOKE config as the reference's
+    do, whatever the device (the plan is captured, not trained)."""
     import torch
 
-    monkeypatch.setattr(train_early_termination, "resolve_device",
-                        lambda device: torch.device("cuda"))
-    assert train_early_termination.make_cfg("tiny").hd == 64
-    assert train_early_termination.make_cfg("100m").hd == 128
+    from repro.configs import registry as ref_registry
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    ref = _load("cluster_schedule")
+    assert cluster_schedule.ARCH_POOL == ref.ARCH_POOL
+    seen = []
+
+    class _Trainer:
+        def __init__(self, plan, data, ckpt):
+            seen.append(plan.cfg)
+
+    monkeypatch.setattr(cluster_schedule, "Trainer", _Trainer)
+    monkeypatch.setattr(cluster_schedule, "default_plan",
+                        lambda cfg, device: type("P", (), {"cfg": cfg})())
+    monkeypatch.setattr(cluster_schedule, "resolve_device", lambda d: torch.device("cuda"))
+    for arch in cluster_schedule.ARCH_POOL:
+        cluster_schedule.make_real_runner(arch, 1, 0.0)
+        _same_config(seen[-1], ref_registry.get_smoke(arch))
+        assert not seen[-1].n_heads or seen[-1].hd in FK.KERNEL_HEAD_DIMS

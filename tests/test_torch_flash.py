@@ -369,15 +369,27 @@ def test_backward_plain_matches_reference_kernels_rows_without_keys(d):
 
 
 def test_kernel_head_dims():
-    """The CUDA wrappers take bf16 at head dims 64, 112 and 128 and refuse
-    any other (checked before a launch, so on CPU tensors too)."""
-    assert K.KERNEL_HEAD_DIMS == (64, 112, 128)
+    """The CUDA wrappers take bf16 at head dims 16, 32, 64, 112 and 128 and
+    refuse any other (checked before a launch, so on CPU tensors too)."""
+    assert K.KERNEL_HEAD_DIMS == (16, 32, 64, 112, 128)
     for d in K.KERNEL_HEAD_DIMS:
         q = torch.zeros((1, 2, 8, d), dtype=torch.bfloat16)
         K._kernel_args("flash_fwd", {"q": q, "k": q, "v": q})
-    for d in (32, 96, 120, 256):
+    for d in (8, 48, 96, 120, 256):
         q = torch.zeros((1, 2, 8, d), dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             K._kernel_args("flash_dq", {"q": q, "k": q, "v": q})
     with pytest.raises(TypeError, match="bfloat16"):
         K._kernel_args("flash_fwd", {"q": torch.zeros((1, 2, 8, 112))})
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_every_config_head_dim_is_a_kernel_head_dim(smoke):
+    """Every registered config, SMOKE included, attends through the kernels
+    on the card: its head dim is one they are built for."""
+    from repro_torch.configs import registry
+
+    for arch in registry.list_archs():
+        cfg = registry.get_smoke(arch) if smoke else registry.get_config(arch)
+        if cfg.n_heads:
+            assert cfg.hd in K.KERNEL_HEAD_DIMS, (arch, cfg.hd)

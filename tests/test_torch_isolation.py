@@ -46,6 +46,10 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.models.frontends, repro_torch.examples\n"
         "import repro_torch.examples.train_early_termination\n"
         "import repro_torch.examples.cluster_schedule\n"
+        "import repro_torch.parallel.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.optim.compress, repro_torch.configs.shapes\n"
+        "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

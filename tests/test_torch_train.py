@@ -149,7 +149,7 @@ def test_train_step_runs_each_attention_kernel_per_layer(remat, fwd_per_layer, m
 
         monkeypatch.setattr(FK, name, counting)
     cfg = registry.get_smoke("qwen3-1.7b", remat=remat)
-    plan = train.default_plan(cfg, "cpu", accum_steps=2)
+    plan = train.default_plan(cfg, device="cpu", accum_steps=2)
     params, state = train.make_init(plan)(0)
     train.make_train_step(plan)(params, state, _torch_batch(_batch(cfg, 4, 16)))
     n = cfg.n_layers * 2
@@ -318,7 +318,7 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path):
     ref_params, ref_state = ref_train.make_init(ref_plan)(jax.random.PRNGKey(0))
     RefCheckpointManager(str(tmp_path)).save(3, {"params": ref_params, "opt": ref_state},
                                              blocking=True)
-    plan = train.default_plan(cfg, "cpu")
+    plan = train.default_plan(cfg, device="cpu")
     params, state = train._abstract_state(plan)
     tree = CheckpointManager(str(tmp_path)).restore(3, {"params": params, "opt": state},
                                                     device="cpu")
@@ -357,7 +357,7 @@ def test_trainer_matches_reference(tmp_path):
         vocab_size=cfg.vocab_size, seq_len=16, global_batch=4))
     _, _, want = ref_train.Trainer(ref_plan, ref_data, RefCheckpointManager(
         str(tmp_path / "ref"))).run(3, log_every=0)
-    trainer = train.Trainer(train.default_plan(cfg, "cpu", **kw), _data(cfg),
+    trainer = train.Trainer(train.default_plan(cfg, device="cpu", **kw), _data(cfg),
                             CheckpointManager(str(tmp_path / "port")))
     _, _, got = trainer.run(3, log_every=0)
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -367,7 +367,7 @@ def test_trainer_matches_reference(tmp_path):
 
 def test_restart_resumes_at_the_saved_step(tmp_path):
     cfg = registry.get_smoke("qwen3-1.7b", **F32)
-    plan = train.default_plan(cfg, "cpu", warmup_steps=1, total_steps=4)
+    plan = train.default_plan(cfg, device="cpu", warmup_steps=1, total_steps=4)
     _, _, straight = train.Trainer(plan, _data(cfg)).run(3, log_every=0)
     first = train.Trainer(plan, _data(cfg), CheckpointManager(str(tmp_path)))
     first.run(2, log_every=0)
