@@ -183,10 +183,23 @@ Phases, each of which must pass:
    the 100m preset) and ``repro_torch.examples.cluster_schedule``
    (``EXAMPLE_CLUSTER_ARGS``; its pool holds Mamba2, Mixtral and Jamba):
    every job a success or terminated, positive walls, each job's
-   wall-clock sojourn logged, and every model kernel launched.
+   wall-clock sojourn logged, and every model kernel launched;
+9. run the meshed programs on a (1, 1) mesh of one NCCL rank, each
+   against its unmeshed run on the same seed, with the launch counts of
+   each path equal: (a) Qwen3-8B served as phase 5a; (b) Qwen3-1.7B's
+   train step; (c) Jamba's long_500k sequence-parallel decode; (d)
+   Llama-3.2-Vision-11B (gates at ``VISION_GATE``) and Seamless-M4T
+   served as phases 5f and 5g, the first decode logits within
+   ``MESH_REL_L2``; (e) Seamless-M4T's train step at full width
+   (``SEAMLESS_TRAIN_SEQ``), the losses within ``MESH_REL_L2``; (f) a
+   meshed ``Trainer`` of Qwen3-1.7B at ``CKPT_LAYERS`` layers that saves,
+   a fresh one that restores every leaf bitwise and resumes, the losses
+   against an unbroken run's; (g) ``compressed_psum`` through NCCL; (h)
+   the dry run of ``DRYRUN_CELLS`` in a subprocess, then
+   ``table_roofline``.
 
-Phases 3, 4, 4b, each serving run of 5, the training run of 6 and each
-example of 8 set every
+Phases 3, 4, 4b, each serving run of 5, the training run of 6, each
+example of 8 and each path of 9 set every
 launch count to 0 just before they drive their path and read the counts
 just after: every kernel of the path must have launched.
 
@@ -410,8 +423,19 @@ LARGE_GROUP, LARGE_GROUP_SAMPLES = 80, 1 << 20
 MESH_REL_L2 = 1e-3
 MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 2, 2
 LONG_CACHE, LONG_STEPS = 524_288, 8
+#: Seamless-M4T-large-v2's meshed train step (phase 9e) at full width and
+#: depth: MESH_TRAIN_BATCH sequences of SEAMLESS_TRAIN_SEQ tokens over as
+#: many frames, so that the unmeshed run and then the meshed one each fit
+#: one card (2.03e9 parameters: 4.1 GB of bf16 weights, 16.3 GB of float32
+#: AdamW moments, 4.1 GB of bf16 gradients, and the float32 logits of 2 x
+#: 2048 x 256,206, 4.2 GB, with their gradient).
+SEAMLESS_TRAIN_SEQ = 2048
+#: The meshed checkpoint (phase 9f): Qwen3-1.7B at CKPT_LAYERS layers, full
+#: width (0.41e9 parameters: 4.1 GB of bf16 weights and float32 moments on
+#: disk), CKPT_STEPS steps saved, as many resumed, against an unbroken run.
+CKPT_LAYERS, CKPT_STEPS = 2, 2
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
-                ("mixtral-8x22b", "long_500k"))
+                ("mixtral-8x22b", "long_500k"), ("seamless-m4t-large-v2", "decode_32k"))
 #: The study phase (4b): the numerical study's sweep (N = 3-8 two-stage
 #: jobs) for workload sets STUDY_SETS, STUDY_TRIALS groups a (set, N) and
 #: STUDY_TRIALS_LAST at N = 8, each through evaluate_many on the card and
@@ -2118,11 +2142,18 @@ def phase_serving(dev) -> dict:
             f"decode vs prefill: rel L2 {rel:.3e}, max abs {max_abs:.3e}")
     del want
     busy_shares(run)
-    res = run["res"]
-    unmeshed = {"tokens": res.tokens.cpu(), "first_decode_logits": res.first_decode_logits.cpu(),
-                "prefill_s": res.prefill_s, "decode_s": list(res.decode_s), "counts": counts}
+    unmeshed = unmeshed_of(run)
     release(run)
     return {"launches": counts, "unmeshed": unmeshed}
+
+
+def unmeshed_of(run: dict) -> dict:
+    """What phase 9 holds a meshed ``generate`` to: the timed run's tokens,
+    first decode logits, walls and launch counts (on the host)."""
+    res = run["res"]
+    return {"tokens": res.tokens.cpu(), "first_decode_logits": res.first_decode_logits.cpu(),
+            "prefill_s": res.prefill_s, "decode_s": list(res.decode_s),
+            "counts": run["counts"]}
 
 
 def mamba_decode_vs_prefill(tag: str, plan, params, prompts) -> float:
@@ -2457,7 +2488,7 @@ def phase_serving_vision(dev) -> dict:
             f"more than {VISION_LIVE_FLOOR}")
     busy_shares(run)
     out = {"launches": run["counts"], "peak_gb": run["peak_gb"], "decode_vs_prefill": rel,
-           "second_image_rel_l2": moved}
+           "second_image_rel_l2": moved, "unmeshed": unmeshed_of(run)}
     del first, second, cache
     release(run)
     return out
@@ -2484,7 +2515,8 @@ def phase_serving_seamless(dev) -> dict:
     require(rel <= SEAMLESS_REL_L2,
             f"Seamless decode vs prefill: rel L2 {rel:.3e} > {SEAMLESS_REL_L2}")
     busy_shares(run)
-    out = {"launches": run["counts"], "peak_gb": run["peak_gb"], "decode_vs_prefill": rel}
+    out = {"launches": run["counts"], "peak_gb": run["peak_gb"], "decode_vs_prefill": rel,
+           "unmeshed": unmeshed_of(run)}
     release(run)
     return out
 
@@ -2554,29 +2586,31 @@ def phase_examples() -> dict:
     return out
 
 
-def mesh_serving(dev, mesh, unmeshed: dict) -> dict:
-    """Phase 9a: Qwen3-8B served meshed through ``default_serve_plan`` on the
-    same weights, prompts and token count as phase 5's unmeshed
-    ``generate``; the first decode step's logits held to phase 5's, the
-    tokens compared, the launch counts equal, both walls logged."""
+def mesh_serving(dev, mesh, cfg, unmeshed: dict, tag: str, setup=None) -> dict:
+    """Phases 9a and 9d: ``cfg`` served meshed through ``default_serve_plan``
+    on the same weights (then ``setup(params, plan)``, if given), prompts,
+    extras and token count as its unmeshed phase-5 ``generate``; the first
+    decode step's logits held to that phase's, the tokens compared, the
+    launch counts equal, both walls logged."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import serve
+    from repro_torch.models.frontends import make_extras
 
-    cfg = get_config("qwen3-8b")
-    tag = "[mesh qwen3-8b]"
     plan = serve.default_serve_plan(
         cfg, mesh, ShapeSpec("serve", SERVE_PROMPT + SERVE_STEPS + 1, SERVE_BATCH, "prefill"))
     gen = torch.Generator(device=dev).manual_seed(SEED)  # phase 5's draws, in its order
     params = serve.init_weights(plan, gen)
+    if setup is not None:
+        setup(params, plan)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
                             device=dev)
-    serve.generate(plan, params, prompts[:, :64], gen_len=2)  # warm up
+    extras = make_extras(gen, cfg, SERVE_BATCH)
+    serve.generate(plan, params, prompts[:, :64], gen_len=2, extras=extras)  # warm up
     torch.cuda.synchronize()
     reset_counts()
-    res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1)
+    res = serve.generate(plan, params, prompts, gen_len=SERVE_STEPS + 1, extras=extras)
     counts = read_counts()
     rel = rel_l2(res.first_decode_logits.float().cpu(), unmeshed["first_decode_logits"].float())
     same_tokens = bool(torch.equal(res.tokens.cpu(), unmeshed["tokens"]))
@@ -2586,9 +2620,10 @@ def mesh_serving(dev, mesh, unmeshed: dict) -> dict:
         f"{mean(res.decode_s):.2f} ms a token (unmeshed {mean(unmeshed['decode_s']):.2f}); "
         f"first decode logits rel L2 {rel:.3e} against phase 5's; tokens equal {same_tokens}; "
         f"launches {counts} (unmeshed {unmeshed['counts']})")
-    require(rel <= MESH_REL_L2, f"meshed Qwen3-8B: rel L2 {rel:.3e} > {MESH_REL_L2}")
-    require(counts["flash_fwd"] == unmeshed["counts"]["flash_fwd"] == cfg.n_layers,
-            f"meshed prefill launched flash_fwd {counts['flash_fwd']} times")
+    require(rel <= MESH_REL_L2, f"{tag} rel L2 {rel:.3e} > {MESH_REL_L2}")
+    require(counts["flash_fwd"] == unmeshed["counts"]["flash_fwd"] > 0,
+            f"{tag} meshed generate launched flash_fwd {counts['flash_fwd']} times, unmeshed "
+            f"{unmeshed['counts']['flash_fwd']}")
     out = {"prefill_ms": res.prefill_s * 1e3, "decode_ms": mean(res.decode_s),
            "unmeshed_prefill_ms": unmeshed["prefill_s"] * 1e3,
            "unmeshed_decode_ms": mean(unmeshed["decode_s"]), "rel_l2": rel,
@@ -2598,20 +2633,34 @@ def mesh_serving(dev, mesh, unmeshed: dict) -> dict:
     return out
 
 
-def mesh_training(dev, mesh) -> dict:
-    """Phase 9b: Qwen3-1.7B's train step on one micro-batch, unmeshed and
-    then meshed from the same seed and batch, MESH_TRAIN_STEPS steps each:
-    the losses within MESH_REL_L2, the attention kernels' counts equal."""
+def vision_gates(params: dict, plan) -> None:
+    """Every period's cross-attention gate at VISION_GATE, as phase 5f sets
+    it: a new leaf placed from the whole value (not a fill of a shard)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    attn = params["periods"]["pos0"]["attn"]
+    logical = T.param_logical(plan.cfg)["periods"]["pos0"]["attn"]["gate"]
+    attn["gate"] = plan.ctx.distribute(
+        torch.full(attn["gate"].shape, VISION_GATE, dtype=attn["gate"].dtype,
+                   device=plan.device), logical)
+
+
+def mesh_training(dev, mesh, cfg, seq: int, tag: str, extras=None) -> dict:
+    """Phases 9b and 9e: ``cfg``'s train step on one micro-batch of
+    MESH_TRAIN_BATCH x ``seq`` tokens (and the batch's ``extras``),
+    unmeshed and then meshed from the same seed and batch,
+    MESH_TRAIN_STEPS steps each: the losses within MESH_REL_L2, the
+    attention kernels' counts equal."""
+    import torch
+
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train
 
-    cfg = get_config(TRAIN_ARCH)
-    tag = "[mesh training qwen3-1.7b]"
-    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                    global_batch=MESH_TRAIN_BATCH, seed=0)).batch(0)
+    batch = {**train.batch_to_device(batch, dev), **(extras or {})}
     out = {}
     for name, m in (("unmeshed", None), ("meshed", mesh)):
         plan = train.default_plan(cfg, m, device=dev, warmup_steps=TRAIN_LR_WARMUP,
@@ -2619,29 +2668,118 @@ def mesh_training(dev, mesh) -> dict:
         params, state = train.make_init(plan)(0)
         step = train.make_train_step(plan)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         losses, walls = [], []
         for _ in range(MESH_TRAIN_STEPS):
             t0 = time.perf_counter()
-            params, state, metrics = step(params, state, train.batch_to_device(batch, dev))
+            params, state, metrics = step(params, state, batch)
             losses.append(float(metrics["loss"]))
             walls.append(time.perf_counter() - t0)
         out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-                     "launches": read_counts()}
+                     "launches": read_counts(),
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
         log(f"{tag} {name}: losses {losses}, step walls {[round(w * 1e3, 1) for w in walls]} "
-            f"ms; launches {out[name]['launches']}")
+            f"ms; peak allocated {out[name]['peak_gb']:.4g} GB; launches "
+            f"{out[name]['launches']}")
         del params, state, step
         torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(out["meshed"]["losses"],
                                                    out["unmeshed"]["losses"]))
     log(f"{tag} loss rel err {rel:.3e}")
-    require(rel <= MESH_REL_L2, f"meshed train step: loss rel err {rel:.3e} > {MESH_REL_L2}")
+    require(rel <= MESH_REL_L2, f"{tag} loss rel err {rel:.3e} > {MESH_REL_L2}")
     for k in ("flash_fwd", "flash_dkv", "flash_dq"):
         require(out["meshed"]["launches"][k] == out["unmeshed"]["launches"][k] > 0,
-                f"meshed {k} launches {out['meshed']['launches'][k]} != unmeshed "
+                f"{tag} meshed {k} launches {out['meshed']['launches'][k]} != unmeshed "
                 f"{out['unmeshed']['launches'][k]}")
     out["loss_rel_err"] = rel
     return out
+
+
+def mesh_checkpoint(dev, mesh) -> dict:
+    """Phase 9f: a meshed ``Trainer`` of Qwen3-1.7B at CKPT_LAYERS layers
+    (full width) runs CKPT_STEPS steps and saves; a fresh meshed
+    ``Trainer`` restores (every leaf bitwise equal to the saved one) and
+    runs CKPT_STEPS more, its launch counts set to 0 just before and read
+    just after; the 2 x CKPT_STEPS losses against an unbroken meshed run's
+    within MESH_REL_L2.  The bytes written and the save and restore
+    seconds are logged."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager, _named_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+
+    seconds = {"save": [], "restore": []}
+
+    class Timed(CheckpointManager):
+        """The manager, its seconds of each save and restore in ``seconds``."""
+
+        def save(self, step, tree, blocking=False):
+            t0 = time.perf_counter()
+            super().save(step, tree, blocking=blocking)
+            seconds["save"].append(time.perf_counter() - t0)
+
+        def restore(self, step, target, device=None):
+            t0 = time.perf_counter()
+            out = super().restore(step, target, device=device)
+            torch.cuda.synchronize()
+            seconds["restore"].append(time.perf_counter() - t0)
+            return out
+
+    cfg = get_config(TRAIN_ARCH, n_layers=CKPT_LAYERS)
+    tag = f"[mesh checkpoint {cfg.name} at {CKPT_LAYERS} layers]"
+    plan = train.default_plan(cfg, mesh, device=dev, warmup_steps=TRAIN_LR_WARMUP,
+                              total_steps=2 * CKPT_STEPS)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=MESH_TRAIN_BATCH, seed=0))
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_params, saved_state, first = train.Trainer(plan, data, Timed(tmp, keep=1)).run(
+            CKPT_STEPS, log_every=0)
+        path = os.path.join(tmp, f"step_{CKPT_STEPS}.npz")
+        written = os.path.getsize(path) + os.path.getsize(path[:-4] + ".json")
+        fresh = train.Trainer(plan, data, Timed(tmp, keep=1))
+        restore = fresh.restore_or_init
+        checked = {}
+
+        def restore_and_check(seed=0):
+            params, state, start = restore(seed)
+            got = _named_leaves({"params": params, "opt": state})
+            want = dict(_named_leaves({"params": saved_params, "opt": saved_state}))
+            checked["leaves"] = len(got)
+            checked["differ"] = [
+                name for name, leaf in got
+                if not (leaf == want[name] if isinstance(leaf, int) else
+                        leaf.placements == want[name].placements and
+                        torch.equal(leaf.full_tensor(), want[name].full_tensor()))]
+            checked["start"] = start
+            return params, state, start
+
+        fresh.restore_or_init = restore_and_check
+        reset_counts()
+        _, _, resumed = fresh.run(CKPT_STEPS, log_every=0)
+        counts = read_counts()
+    del saved_params, saved_state
+    torch.cuda.empty_cache()
+    _, _, straight = train.Trainer(plan, data).run(2 * CKPT_STEPS, log_every=0)
+    torch.cuda.empty_cache()
+    losses = first + resumed
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, straight))
+    log(f"{tag} wrote {written} bytes; save s {[round(t, 3) for t in seconds['save']]}, "
+        f"restore s {[round(t, 3) for t in seconds['restore']]}; {checked['leaves']} "
+        f"leaves restored at step {checked['start']}, differing {checked['differ']}; losses "
+        f"{losses} against the unbroken run's {straight}: rel err {rel:.3e}, bitwise "
+        f"{losses == straight}; resumed run's launches {counts}")
+    require(checked["start"] == CKPT_STEPS and not checked["differ"],
+            f"{tag} restored leaves differ: {checked['differ']}")
+    require(rel <= MESH_REL_L2, f"{tag} losses rel err {rel:.3e} > {MESH_REL_L2}")
+    require(counts["flash_fwd"] > 0, f"{tag} the resumed run launched no flash_fwd")
+    return {"bytes_written": written, "save_s": seconds["save"],
+            "restore_s": seconds["restore"], "losses": losses, "unbroken": straight,
+            "loss_rel_err": rel, "bitwise": losses == straight, "launches": counts}
 
 
 def mesh_long_decode(dev, mesh) -> dict:
@@ -2716,7 +2854,7 @@ def mesh_long_decode(dev, mesh) -> dict:
 
 
 def mesh_compress(dev, mesh) -> dict:
-    """Phase 9d: ``compressed_psum`` over Qwen3-1.7B's gradient tree (the
+    """Phase 9g: ``compressed_psum`` over Qwen3-1.7B's gradient tree (the
     gradients of one 2 x 512 batch) through NCCL, against
     ``dequantize(*quantize(g + r)[:2])`` (one rank: the mean is its own
     dequantized lanes), bit for bit."""
@@ -2755,7 +2893,7 @@ def mesh_compress(dev, mesh) -> dict:
 
 
 def mesh_dryrun() -> dict:
-    """Phase 9e: the dry run of DRYRUN_CELLS on the (16, 16) mesh in its own
+    """Phase 9h: the dry run of DRYRUN_CELLS on the (16, 16) mesh in its own
     process (its ``fake`` group cannot share this one with NCCL), then
     ``table_roofline`` on its cells."""
     import tempfile
@@ -2786,27 +2924,48 @@ def mesh_dryrun() -> dict:
 
 def phase_mesh(dev, unmeshed: dict) -> dict:
     """Phase 9: the meshed programs on a (1, 1) ("data", "model") mesh of
-    one NCCL rank (a ``file://`` store under a temporary directory); the
-    group is destroyed before the report."""
+    one NCCL rank (a ``file://`` store under a temporary directory), each
+    path's launch counts set to 0 just before it and read just after;
+    ``unmeshed`` holds phases 5a, 5f and 5g's records by arch.  The group
+    is destroyed before the report."""
+    import dataclasses
     import tempfile
 
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.frontends import make_extras
 
     t0 = time.perf_counter()
+    seamless = dataclasses.replace(get_config(SEAMLESS), frontend_frames=SERVE_PROMPT)
+    seamless_train = dataclasses.replace(seamless, frontend_frames=SEAMLESS_TRAIN_SEQ)
+    frames = make_extras(torch.Generator(device=dev).manual_seed(SEED + 11), seamless_train,
+                         MESH_TRAIN_BATCH)
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
                                 rank=0, world_size=1, device_id=dev)
         try:
             mesh = make_host_mesh(1, 1, device_type="cuda")
-            out = {"serving": mesh_serving(dev, mesh, unmeshed),
-                   "training": mesh_training(dev, mesh),
+            out = {"serving": mesh_serving(dev, mesh, get_config("qwen3-8b"),
+                                           unmeshed["qwen3-8b"], "[mesh qwen3-8b]"),
+                   "training": mesh_training(dev, mesh, get_config(TRAIN_ARCH), TRAIN_SEQ,
+                                             "[mesh training qwen3-1.7b]"),
                    "long_decode": mesh_long_decode(dev, mesh),
+                   "vision_serving": mesh_serving(dev, mesh, get_config(VISION),
+                                                  unmeshed[VISION], f"[mesh {VISION}]",
+                                                  setup=vision_gates),
+                   "seamless_serving": mesh_serving(dev, mesh, seamless, unmeshed[SEAMLESS],
+                                                    f"[mesh {SEAMLESS}]"),
+                   "seamless_training": mesh_training(dev, mesh, seamless_train,
+                                                      SEAMLESS_TRAIN_SEQ,
+                                                      f"[mesh training {SEAMLESS}]", frames),
+                   "checkpoint": mesh_checkpoint(dev, mesh),
                    "compress": mesh_compress(dev, mesh)}
         finally:
             dist.destroy_process_group()
+    del frames
     torch.cuda.empty_cache()
     out["dryrun"] = mesh_dryrun()
     log(f"[mesh] phase 9 in {time.perf_counter() - t0:.1f} s")
@@ -3322,7 +3481,8 @@ def main() -> int:
                  {"mixtral-8x22b": mixtral["moe_shapes"], "kimi-k2-1t-a32b": kimi["moe_shapes"]},
                  report)
     examples = phase_examples()
-    meshed = phase_mesh(dev, serving["unmeshed"])
+    meshed = phase_mesh(dev, {"qwen3-8b": serving["unmeshed"], VISION: vision.pop("unmeshed"),
+                              SEAMLESS: seamless.pop("unmeshed")})
     smi = nvidia_smi()
     runs = {"qwen3-8b": serving, "mamba2-1.3b": mamba, "mixtral-8x22b": mixtral,
             "kimi-k2-1t-a32b": kimi, JAMBA: jamba, VISION: vision, SEAMLESS: seamless,
@@ -3334,7 +3494,11 @@ def main() -> int:
             "qwen3-1.7b meshed training": meshed["training"]["meshed"],
             "jamba long_500k sp decode": meshed["long_decode"],
             "jamba long_500k unmeshed decode": {
-                "launches": meshed["long_decode"]["plain_launches"]}}
+                "launches": meshed["long_decode"]["plain_launches"]},
+            "vision mesh serve": meshed["vision_serving"],
+            "seamless mesh serve": meshed["seamless_serving"],
+            "seamless mesh train": meshed["seamless_training"]["meshed"],
+            "qwen3-1.7b mesh resumed training": meshed["checkpoint"]}
 
     def by_path(name):
         return {path: run["launches"][name] for path, run in runs.items()

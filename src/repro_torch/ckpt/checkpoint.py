@@ -17,6 +17,14 @@ a checkpoint the reference wrote of the same tree restores here:
   right after), then writes on a background thread; :meth:`wait` joins
   it and raises what the write raised.
 * **Keep-K GC** — only the ``keep`` newest checkpoints stay.
+* **Meshed runs** — a DTensor leaf is gathered whole (``full_tensor()``,
+  a collective every rank makes, leaf by leaf, on the calling thread) and
+  only rank 0 writes, so a meshed run's checkpoint is the file an
+  unmeshed run of the same values writes; a blocking save ends in a
+  barrier.  A DTensor leaf of ``restore``'s target (on ``meta`` too)
+  says where the leaf goes: every rank reads the whole array and keeps
+  its shard, so one file restores onto any mesh or onto one device, as
+  the reference's ``restore(..., shardings=)`` reshards.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.sharding import is_dtensor
 
 __all__ = ["CheckpointManager"]
 
@@ -55,8 +66,13 @@ def _named_leaves(tree: Any) -> list[tuple[str, Any]]:
     return out
 
 
-def _to_host(leaf: Any) -> np.ndarray:
-    """A host copy of a leaf: bfloat16 as 2-byte raw data."""
+def _to_host(leaf: Any, keep: bool = True) -> np.ndarray | None:
+    """A host copy of a leaf: bfloat16 as 2-byte raw data.  A DTensor is
+    gathered whole first (every rank must call this); ``keep=False`` (a
+    rank that does not write) drops the gathered value."""
+    if is_dtensor(leaf):
+        whole = leaf.full_tensor()
+        return _to_host(whole) if keep else None
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -73,9 +89,23 @@ def _dtype_name(leaf: Any, host: np.ndarray) -> str:
     return str(host.dtype)
 
 
+def _place(t: torch.Tensor, target) -> torch.Tensor:
+    """The whole tensor ``t``, equal on every rank, as a DTensor placed as
+    the DTensor ``target``: each rank keeps its own shard (a copy, so that
+    the whole is freed)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    mesh, pl = target.device_mesh, target.placements
+    local = distribute_tensor(t, mesh, pl, src_data_rank=None).to_local()
+    if local.untyped_storage().nbytes() != local.nbytes:  # a view of the whole
+        local = local.clone()
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=t.shape, stride=t.stride())
+
+
 def _from_host(name: str, arr: np.ndarray, target: Any, device) -> Any:
     """The stored array as ``target``'s kind: a tensor of its dtype and
-    shape on ``device`` (or on the target's own device), or an int."""
+    shape on ``device`` (or on the target's own device), or an int; for a
+    DTensor target, placed as it is (:func:`_place`)."""
     if not isinstance(target, torch.Tensor):
         return int(arr)
     if tuple(arr.shape) != tuple(target.shape):
@@ -86,6 +116,9 @@ def _from_host(name: str, arr: np.ndarray, target: Any, device) -> Any:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(target.dtype)
+    if is_dtensor(target):
+        return _place(t.to(device if device is not None else target.device_mesh.device_type),
+                      target)
     return t.to(device if device is not None else target.device)
 
 
@@ -100,10 +133,20 @@ class CheckpointManager:
     # -- save ----------------------------------------------------------
 
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
-        """Snapshot ``tree`` (params, optimizer state) at ``step``."""
+        """Snapshot ``tree`` (params, optimizer state) at ``step``.  Of a
+        meshed tree (DTensor leaves) every rank must call it: each leaf is
+        gathered on every rank, rank 0 writes, and a blocking save ends
+        when every rank has seen the file in place."""
         self.wait()
         named = _named_leaves(tree)
-        host = {name: _to_host(leaf) for name, leaf in named}
+        meshed = any(is_dtensor(leaf) for _, leaf in named)
+        writer = not meshed or dist.get_rank() == 0
+        # leaf by leaf: a rank holds one gathered leaf at a time beyond its shards
+        host = {name: _to_host(leaf, keep=writer) for name, leaf in named}
+        if not writer:
+            if blocking:
+                dist.barrier()
+            return
         manifest = {
             "step": int(step),
             "process_index": 0,
@@ -127,6 +170,8 @@ class CheckpointManager:
 
         if blocking:
             write()
+            if meshed:
+                dist.barrier()
             return
 
         def run():
@@ -173,7 +218,9 @@ class CheckpointManager:
         """Load ``step`` onto the structure of ``target``, whose tensor
         leaves (on any device, ``meta`` included) give each leaf's dtype
         and shape; tensors land on ``device``, or on their target's
-        device when it is None."""
+        device when it is None.  A DTensor leaf of ``target`` gives its
+        mesh and placements too: the leaf comes back placed so, each rank
+        holding its shard."""
         self.wait()
         path = os.path.join(self.directory, f"step_{step}.npz")
         with np.load(path) as data:

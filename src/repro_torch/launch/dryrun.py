@@ -1,6 +1,6 @@
-"""Production-mesh dry run: every (arch x shape) cell of the meshed
-families on the (16, 16) single-pod and (2, 16, 16) two-pod meshes, on
-the ``meta`` device, and the roofline inputs of each.
+"""Production-mesh dry run: every runnable (arch x shape) cell on the
+(16, 16) single-pod and (2, 16, 16) two-pod meshes, on the ``meta``
+device, and the roofline inputs of each.
 
 The counterpart of ``repro/launch/dryrun.py``.  Run it as its own
 process (``python -m repro_torch.launch.dryrun ...``): it sets up torch's
@@ -26,9 +26,14 @@ two shallow compiled programs (``dryrun.py:167-190``, needed because
 XLA's cost analysis counts a scanned loop's body once) is not needed:
 the counts are of the whole depth.
 
-The vlm and encdec families are not wired under a mesh yet; their cells
-are left out (27 cells a mesh).  Artifacts: one JSON a cell under
-``--out`` (default ``artifacts/dryrun_torch/``), which
+Every cell of ``configs.shapes.runnable_cells()`` runs (33 a mesh).  A
+decode cell of the vlm and encdec families also takes the static cross
+memory, stacked ``(n, B, S_mem, Hkv, hd)`` K and V (``n`` the decoder
+layers, or the vision model's cross periods; ``S_mem`` the frames or the
+image tokens), on ``meta`` and placed as the serving plan places it, as
+the reference's ``lower_cell`` builds it; like the reference's, the
+state it counts is the weights and the cache.  Artifacts: one JSON a
+cell under ``--out`` (default ``artifacts/dryrun_torch/``), which
 ``python -m repro_torch.launch.study --table roofline`` reads.
 """
 
@@ -44,17 +49,16 @@ import traceback
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.registry import get_config
 from repro_torch.configs.shapes import SHAPES, arch_shape_config, input_specs, runnable_cells
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.mesh import MULTIPOD_SHAPE, POD_SHAPE, make_production_mesh
 from repro_torch.launch.serve import default_serve_plan, make_decode_fn, make_prefill_fn
-from repro_torch.launch.train import MESHED_FAMILIES, default_plan, make_train_step
+from repro_torch.launch.train import default_plan, make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.models.init import tree_leaves, tree_map
 from repro_torch.optim import adamw as opt
 
-__all__ = ["init_fake_world", "meshed_cells", "state_bytes", "analyze_cell", "main"]
+__all__ = ["init_fake_world", "state_bytes", "memory_shape", "analyze_cell", "main"]
 
 OUT = os.path.join("artifacts", "dryrun_torch")
 
@@ -69,11 +73,6 @@ def init_fake_world(world: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
 
 
-def meshed_cells() -> list[tuple[str, str]]:
-    """The runnable cells of the families that run meshed."""
-    return [(a, s) for a, s in runnable_cells() if get_config(a).family in MESHED_FAMILIES]
-
-
 def state_bytes(*trees) -> int:
     """Bytes of rank 0's shards of the DTensors of ``trees``."""
     total = 0
@@ -84,13 +83,24 @@ def state_bytes(*trees) -> int:
     return total
 
 
+def memory_shape(cfg, batch: int) -> tuple[int, ...] | None:
+    """The shape of each of the decode's stacked cross K and V: (n, B,
+    S_mem, Hkv, hd); None for a family without a cross memory."""
+    if cfg.family == "encdec":
+        return cfg.n_layers, batch, cfg.frontend_frames, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "vlm":
+        return (cfg.n_layers // cfg.cross_attn_period, batch, cfg.num_image_tokens,
+                cfg.n_kv_heads, cfg.hd)
+    return None
+
+
 def _placed(ctx, tree, logical):
     return tree_map(lambda t, log: ctx.distribute(t, log), tree, logical)
 
 
-def _program(arch: str, cfg, spec, mesh, long_context: bool):
-    """(step, args, state trees) of one cell, every tensor on ``meta``."""
-    specs = input_specs(arch, spec.name)
+def _program(cfg, spec, mesh, long_context: bool, specs: dict):
+    """(step, args, state trees) of one cell whose inputs are ``specs``
+    (:func:`configs.shapes.input_specs`), every tensor on ``meta``."""
     params = T.abstract_params(cfg)
     logical = T.param_logical(cfg)
     if spec.kind == "train":
@@ -105,7 +115,12 @@ def _program(arch: str, cfg, spec, mesh, long_context: bool):
         return make_prefill_fn(plan), (params, specs), (params,)
     cache = T.init_cache(cfg, spec.global_batch, spec.seq_len, "meta", plan.cache_ctx)
     token = plan.place(specs["token"], ("batch", None))
-    return make_decode_fn(plan), (params, token, cache, spec.seq_len - 1), (params, cache)
+    args = (params, token, cache, spec.seq_len - 1)
+    mem = memory_shape(cfg, spec.global_batch)
+    if mem is not None:
+        args += (tuple(plan.place(torch.empty(mem, dtype=cfg.dtype, device="meta"),
+                                  T.MEMORY_LOGICAL) for _ in "kv"),)
+    return make_decode_fn(plan), args, (params, cache)
 
 
 def analyze_cell(arch: str, shape: str, multi_pod: bool, overrides: dict | None = None) -> dict:
@@ -116,7 +131,7 @@ def analyze_cell(arch: str, shape: str, multi_pod: bool, overrides: dict | None 
         cfg = dataclasses.replace(cfg, **overrides)
     spec = SHAPES[shape]
     t0 = time.perf_counter()
-    step, args, state = _program(arch, cfg, spec, mesh, long_context=shape == "long_500k")
+    step, args, state = _program(cfg, spec, mesh, shape == "long_500k", input_specs(arch, shape))
     t_setup = time.perf_counter() - t0
     flops, coll, hbm = RL.FlopCount(), RL.CollectiveBytes(), RL.HbmBytes()
     t0 = time.perf_counter()
@@ -166,7 +181,7 @@ def _parse_overrides(pairs) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default=None, help="arch id (default: all meshed ones)")
+    ap.add_argument("--arch", default=None, help="arch id (default: all)")
     ap.add_argument("--shape", default=None, help="shape name (default: all)")
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
     ap.add_argument("--out", default=OUT)
@@ -177,13 +192,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     overrides = _parse_overrides(args.override)
 
-    cells = meshed_cells()
+    cells = runnable_cells()
     if args.arch:
         cells = [c for c in cells if c[0] == args.arch]
     if args.shape:
         cells = [c for c in cells if c[1] == args.shape]
     if not cells:
-        ap.error("no meshed cell matches --arch/--shape")
+        ap.error("no runnable cell matches --arch/--shape")
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     os.makedirs(args.out, exist_ok=True)
     failures = []

@@ -14,12 +14,18 @@ IN PLACE (the reference donates the cache to get the same effect).
 
 Under a mesh (:func:`default_serve_plan`) the weights, the batch and the
 cache are DTensors, placed by their logical axes: the weights by the
-plan's ``rules``, the cache by its own ``cache_rules`` (the serving cache
-shards its batch over the whole mesh, or with ``sp`` its sequence over
-"data"), and a decode step attends with the
-sequence-parallel :func:`~repro_torch.models.attention.sp_decode_attention`.
-The dense, moe, ssm and hybrid families run meshed; the vlm and encdec
-families raise ``NotImplementedError`` under a mesh.
+plan's ``rules``, the batch's tokens and extras as the trainer places
+them (:func:`~repro_torch.launch.train.batch_logical`: ``enc_frames`` by
+("batch", "seq", None), ``image_embeds`` by ("batch", None, None)), the
+cache by its own ``cache_rules`` (the serving cache shards its batch over
+the whole mesh, or with ``sp`` its sequence over "data"), and the cross
+memory by :data:`~repro_torch.models.transformer.MEMORY_LOGICAL` under
+the plan's rules (under a decode shape's rules its batch over ("pod",
+"model") and its sequence over "data").  A decode step attends to the
+cache with the sequence-parallel
+:func:`~repro_torch.models.attention.sp_decode_attention` and to the
+memory through the attention kernel's DTensor route.  Every family runs
+meshed.
 
 Command line (random weights from ``--seed``; the real weights are not
 in the repository; the vlm and encdec families' image or frame
@@ -53,7 +59,7 @@ import torch.distributed as dist
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import MESHED_FAMILIES, init_group, parse_mesh
+from repro_torch.launch.train import batch_logical, init_group, parse_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import make_extras
@@ -85,11 +91,6 @@ class ServePlan:
     sp: bool = False  # sequence-parallel cache (long-context decode)
     cache_rules: AxisRules | None = None  # the cache's own rules (default: rules)
 
-    def __post_init__(self):
-        if self.mesh is not None and self.cfg.family not in MESHED_FAMILIES:
-            raise NotImplementedError(f"meshed serving of the {self.cfg.family} family is "
-                                      "not wired")
-
     @property
     def ctx(self) -> ShardingCtx:
         return ShardingCtx(self.mesh, self.rules)
@@ -101,6 +102,15 @@ class ServePlan:
     def place(self, t: torch.Tensor, logical: tuple):
         """A tensor every rank holds whole (tokens), placed by ``logical``."""
         return self.ctx.distribute(t, logical)
+
+    def place_batch(self, batch: dict) -> dict:
+        """The batch's tensors that every rank holds whole placed by their
+        names (:func:`~repro_torch.launch.train.batch_logical`); DTensors
+        and an unmeshed plan's batch pass as they are."""
+        if self.mesh is None:
+            return batch
+        return {k: v if is_dtensor(v) else self.place(v, batch_logical(k))
+                for k, v in batch.items()}
 
 
 def default_serve_plan(cfg: ModelConfig, mesh, shape_spec, *, long_context: bool = False,
@@ -144,12 +154,8 @@ def make_prefill_fn(plan: ServePlan) -> Callable:
 
     @_no_grad(plan)
     def prefill_step(params, batch):
-        if plan.mesh is not None:
-            batch = {k: v if is_dtensor(v) else
-                     plan.place(v, ("batch", "seq") if v.dim() == 2 else ("batch", "seq", None))
-                     for k, v in batch.items()}
-        return T.prefill(params, batch, cfg, max_len=plan.max_len, ctx=plan.ctx,
-                         cache_ctx=plan.cache_ctx)
+        return T.prefill(params, plan.place_batch(batch), cfg, max_len=plan.max_len,
+                         ctx=plan.ctx, cache_ctx=plan.cache_ctx)
 
     return prefill_step
 
@@ -159,7 +165,7 @@ def make_prime_fn(plan: ServePlan) -> Callable:
 
     @_no_grad(plan)
     def prime(params, batch):
-        return T.prime_memory(params, cfg, batch)
+        return T.prime_memory(params, cfg, plan.place_batch(batch), ctx=plan.ctx)
 
     return prime
 
@@ -171,6 +177,9 @@ def make_decode_fn(plan: ServePlan) -> Callable:
     def decode(params, token, cache, pos: int, memory=None):
         if plan.mesh is not None and not is_dtensor(token):
             token = plan.place(token, ("batch", None))
+        if plan.mesh is not None and memory is not None:
+            memory = tuple(plan.ctx.constrain(m, T.MEMORY_LOGICAL) if is_dtensor(m) else
+                           plan.place(m, T.MEMORY_LOGICAL) for m in memory)
         return T.decode_step(params, token, cache, pos, cfg, memory, ctx=plan.ctx, sp=plan.sp)
 
     return decode

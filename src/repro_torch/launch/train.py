@@ -21,15 +21,21 @@ moments as their parameters, the batch by
 :meth:`~TrainPlan.batch_shardings`); each
 gradient is brought to its parameter's placements (a reduce-scatter
 where it is a partial sum) before the update, which runs on each rank's
-shards.  The dense, moe, ssm and hybrid families run meshed; the vlm and
-encdec families and meshed adafactor raise ``NotImplementedError``, the
-latter as the reference does.
+shards.  Every family runs meshed; meshed adafactor raises
+``NotImplementedError``, as the reference does.  A meshed
+:class:`Trainer` checkpoints and restarts as an unmeshed one: its
+checkpoint holds the whole arrays, and a restart restores them onto the
+plan's placements, on this mesh or another.
 
-Command line (random weights from seed 0, SyntheticLM data)::
+Command line (random weights from seed 0, SyntheticLM data; the vlm and
+encdec families' image or frame embeddings drawn as the frontend stubs
+draw them, :class:`StubExtras`)::
 
     python -m repro_torch.launch.train --smoke --device cpu    # qwen3-1.7b SMOKE
     python -m repro_torch.launch.train --steps 8 --batch 2 --seq 4096  # Qwen3-1.7B on the card
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --smoke --device cpu --mesh 4x2
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --smoke --device cpu --mesh 4x2 \
+        --arch llama-3.2-vision-11b --ckpt-dir ckpt
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import tempfile
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -49,6 +56,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import frontend_shapes
 from repro_torch.models.init import materialize, tree_leaves, tree_map
 from repro_torch.optim import adamw as opt
 from repro_torch.optim.schedule import cosine_schedule
@@ -63,10 +71,17 @@ from repro_torch.parallel.sharding import (
 )
 
 __all__ = ["TrainPlan", "default_plan", "make_init", "loss_and_grads", "make_train_step",
-           "batch_to_device", "Trainer", "init_group", "parse_mesh", "main"]
+           "batch_to_device", "batch_logical", "StubExtras", "Trainer", "init_group",
+           "parse_mesh", "main"]
 
-#: Families whose meshed programs are wired (the vlm and encdec ones are not yet).
-MESHED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: The logical axes of the batch's extras, as the reference places them;
+#: tokens and labels are ("batch", "seq").
+EXTRA_LOGICAL = {"enc_frames": ("batch", "seq", None), "image_embeds": ("batch", None, None)}
+
+
+def batch_logical(name: str) -> tuple:
+    """The logical axes of the batch entry ``name``."""
+    return EXTRA_LOGICAL.get(name, ("batch", "seq"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,13 +104,11 @@ class TrainPlan:
     # -- shardings ---------------------------------------------------------
 
     def batch_shardings(self, batch_specs: dict):
-        """The placements of each batch entry: ``("batch", "seq")`` for
-        tokens and labels, ``("batch", "seq", None)`` for 3-d extras."""
+        """The placements of each batch entry, by its name
+        (:func:`batch_logical`)."""
         if self.mesh is None:
             return None
-        return {k: placements(("batch", "seq") if v.dim() == 2 else ("batch", "seq", None),
-                              self.mesh, self.rules)
-                for k, v in batch_specs.items()}
+        return {k: placements(batch_logical(k), self.mesh, self.rules) for k in batch_specs}
 
     def place_batch(self, batch: dict) -> dict:
         """A batch whose tensors every rank holds whole, as DTensors placed
@@ -115,8 +128,6 @@ def default_plan(cfg: ModelConfig, mesh=None, *, long_context: bool = False, dev
     """The reference's plan: float32 moments below 2e11 parameters, bfloat16
     above; on ``mesh`` the rules of :func:`rules_for` at its model axis.
     ``device=None`` is the card, or under a mesh the mesh's device type."""
-    if mesh is not None and cfg.family not in MESHED_FAMILIES:
-        raise NotImplementedError(f"meshed training of the {cfg.family} family is not wired")
     model_axis = mesh_axis_sizes(mesh).get("model", 1) if mesh is not None else 1
     rules = rules_for(cfg, long_context=long_context, model_axis=model_axis)
     moment_dtype = "bfloat16" if cfg.param_count() > 2e11 else "float32"
@@ -159,8 +170,12 @@ def make_init(plan: TrainPlan) -> Callable:
 
 def _abstract_state(plan: TrainPlan) -> tuple[dict, opt.OptState]:
     """(params, opt_state) of the plan on the ``meta`` device: the
-    structure, shapes and dtypes a checkpoint restores onto."""
+    structure, shapes and dtypes a checkpoint restores onto, and under a
+    mesh the placements (the parameters' by their logical axes, as
+    :func:`make_init` places them; the moments follow)."""
     params = T.abstract_params(plan.cfg)
+    if plan.mesh is not None:
+        params = tree_map(plan.ctx.distribute, params, T.param_logical(plan.cfg))
     return params, _opt_init(plan, params)
 
 
@@ -239,8 +254,27 @@ def make_train_step(plan: TrainPlan) -> Callable:
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
-    """A host batch of int32 arrays as int64 tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device).long() for k, v in batch.items()}
+    """A host batch on ``device``: its integer arrays (tokens, labels) as
+    int64 tensors, its float arrays (the extras) in their own type."""
+    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    return {k: v if v.is_floating_point() else v.long() for k, v in out.items()}
+
+
+class StubExtras:
+    """``data``'s batches with the family's extras added (``image_embeds``
+    for vlm, ``enc_frames`` for encdec), drawn as the frontend stubs draw
+    them (0.02 x standard normal, float32) from ``seed`` and the step: the
+    command line's stand-in for the real image and speech frontends."""
+
+    def __init__(self, data, cfg: ModelConfig, seed: int = 0):
+        self.data, self.cfg, self.seed = data, cfg, seed
+
+    def batch(self, step: int) -> dict:
+        out = dict(self.data.batch(step))
+        rng = np.random.default_rng((self.seed, step))
+        for name, shape in frontend_shapes(self.cfg, len(out["tokens"])).items():
+            out[name] = (0.02 * rng.standard_normal(shape)).astype(np.float32)
+        return out
 
 
 class Trainer:
@@ -273,7 +307,8 @@ class Trainer:
 
     def restore_or_init(self, seed: int = 0):
         """(params, opt_state, first step): the latest checkpoint if there
-        is one, else a fresh init from ``seed``."""
+        is one (under a mesh, placed as the plan places a fresh init), else
+        a fresh init from ``seed``."""
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             step = self.ckpt.latest_step()
             params, state = _abstract_state(self.plan)
@@ -353,18 +388,18 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":  # the frames track the sequence, as the reference's shapes
+        cfg = dataclasses.replace(cfg, frontend_frames=args.seq)
     mesh = None
     if args.mesh:
-        if args.ckpt_dir:
-            ap.error("--ckpt-dir is not wired for a meshed run")
         from repro_torch.launch.mesh import make_host_mesh
 
         device = resolve_device(args.device)
         init_group(device)
         mesh = make_host_mesh(*parse_mesh(args.mesh), device_type=device.type)
     plan = default_plan(cfg, mesh, device=args.device)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                                  global_batch=args.batch))
+    data = StubExtras(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                             global_batch=args.batch)), cfg)
     ckpt = None
     if args.ckpt_dir:
         from repro_torch.ckpt.checkpoint import CheckpointManager

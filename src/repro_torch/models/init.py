@@ -77,10 +77,10 @@ def _std(spec: ParamSpec) -> float:
     raise ValueError(f"unknown init {spec.init!r}")
 
 
-#: Largest number of elements drawn at once: a leaf above it is drawn slice
-#: by slice along its leading dims, so that drawing the largest leaf
-#: (Mixtral's stacked experts, 9.7e9 elements at 12 layers) never holds a
-#: float32 copy of the whole leaf.
+#: Largest number of elements drawn at once: a leaf above it is drawn in
+#: runs of this many elements (in its memory order), so that drawing the
+#: largest leaf (Mixtral's stacked experts, 9.7e9 elements at 12 layers)
+#: never holds a float32 copy of the whole leaf.
 DRAW_ELEMENTS = 1 << 27
 
 
@@ -91,21 +91,20 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     std = _std(spec)
     out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
-    lead = 0  # leading dims walked one index at a time
-    while lead < len(spec.shape) - 1 and math.prod(spec.shape[lead:]) > DRAW_ELEMENTS:
-        lead += 1
-    for idx in np.ndindex(*spec.shape[:lead]):
-        x = torch.randn(spec.shape[lead:], generator=generator, dtype=torch.float32,
-                        device=device)
-        out[idx] = x.mul_(std)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), DRAW_ELEMENTS):
+        n = min(DRAW_ELEMENTS, flat.numel() - start)
+        flat[start:start + n] = torch.randn(n, generator=generator, dtype=torch.float32,
+                                            device=device).mul_(std)
     return out
 
 
 def materialize(spec_tree: Any, generator: torch.Generator, device, place=None) -> Any:
     """Instantiate every ParamSpec leaf on ``device``, drawing from
     ``generator`` (which must live on ``device``) leaf by leaf in sorted
-    key order, and a large leaf slice by slice (:data:`DRAW_ELEMENTS`).  The numbers differ from the JAX package's for the same
-    seed; :func:`from_reference` is how the tests share weights.
+    key order, and a large leaf in runs of :data:`DRAW_ELEMENTS`.  The
+    numbers differ from the JAX package's for the same seed;
+    :func:`from_reference` is how the tests share weights.
     ``place(tensor, spec)``, if given, takes each leaf as soon as it is
     drawn (a meshed init keeps only its shard of it)."""
     if place is None:

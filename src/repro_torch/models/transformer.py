@@ -90,6 +90,7 @@ __all__ = [
     "abstract_cache",
     "prefill",
     "prime_memory",
+    "MEMORY_LOGICAL",
     "decode_step",
 ]
 
@@ -565,23 +566,30 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_len: int,
     return logits, cache
 
 
-def prime_memory(params: dict, cfg: ModelConfig, batch: dict):
+#: The logical axes of :func:`prime_memory`'s stacked cross K/V, as the
+#: reference's decode takes them.
+MEMORY_LOGICAL = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+
+
+def prime_memory(params: dict, cfg: ModelConfig, batch: dict, ctx: ShardingCtx = _NO_MESH):
     """The static cross-attention memory of a decode: stacked ``(k, v)``,
     each (n, B, S_mem, Hkv, hd), one entry a decoder layer (encdec: the
     encoder run over ``batch["enc_frames"]`` again, then each layer's
     ``xattn`` projections) or a period (vlm: each period's cross
     projections of ``batch["image_embeds"]``); None for the other
-    families."""
+    families.  Under a mesh (``ctx``) the batch's extras are DTensors and
+    the stacks are placed by :data:`MEMORY_LOGICAL`."""
     if cfg.family == "encdec":
-        enc = encode(params, batch["enc_frames"], cfg)
-        kv = [attn.memory_kv(lp["xattn"], enc, cfg) for lp in _unstack(params["layers"])]
+        enc = encode(params, batch["enc_frames"], cfg, ctx=ctx)
+        kv = [attn.memory_kv(lp["xattn"], enc, cfg, ctx) for lp in _unstack(params["layers"])]
     elif cfg.family == "vlm":
         image = batch["image_embeds"].to(cfg.dtype)
-        kv = [attn.memory_kv(pp["pos0"]["attn"], image, cfg)
+        kv = [attn.memory_kv(pp["pos0"]["attn"], image, cfg, ctx)
               for pp in _unstack(params["periods"])]
     else:
         return None
-    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+    return tuple(ctx.constrain(torch.stack(part), MEMORY_LOGICAL)
+                 for part in ([k for k, _ in kv], [v for _, v in kv]))
 
 
 def _decode_mixer(lp: dict, x: torch.Tensor, stack: dict, i: int, pos: int, cfg: ModelConfig,

@@ -11,7 +11,14 @@ roofline arithmetic, the report, and a miniature dry run.
   ``test_mini_dryrun_on_host_mesh``: FLOPs and collective bytes above 0,
   and ``state_bytes_per_chip`` equal to the reference's
   ``dryrun._sharded_bytes`` of the same plan on its 8-device host mesh
-  (a second process, run meanwhile).
+  (a second process, run meanwhile);
+* the dry run's cells: every one of ``runnable_cells()`` (33) on each
+  production mesh;
+* the same miniature dry run of the Llama-3.2-Vision and Seamless SMOKE
+  decode with their cross memory, through the dry run's own cell
+  program: FLOPs above 0, and the bytes of the weights and the cache a
+  rank equal to the reference's ``_sharded_bytes`` of the same serving
+  plan.
 """
 
 import json
@@ -189,3 +196,106 @@ def test_mini_dryrun_on_a_fake_mesh_matches_reference_state_bytes(tmp_path):
     assert sum(port["coll"].values()) > 0, "a sharded train step moves bytes between ranks"
     assert port["state"] == outs["reference"]["state"]
 
+
+
+def test_dry_run_runs_every_runnable_cell_on_each_mesh(tmp_path, monkeypatch):
+    """``--mesh both`` analyses each of the 33 runnable cells on the
+    (16, 16) and the (2, 16, 16) mesh (the analysis itself stubbed)."""
+    from repro_torch.launch import dryrun
+
+    seen = []
+
+    def analyze(arch, shape, multi, overrides):
+        seen.append((arch, shape, multi))
+        return {"t_run_s": 0.0, "flops_per_chip": 1.0, "state_bytes_per_chip": 0,
+                "roofline": {"dominant": "compute", "roofline_fraction": 1.0}}
+
+    monkeypatch.setattr(dryrun, "init_fake_world", lambda world: None)
+    monkeypatch.setattr(dryrun, "analyze_cell", analyze)
+    monkeypatch.setattr(dryrun.dist, "destroy_process_group", lambda: None)
+    assert dryrun.main(["--mesh", "both", "--out", str(tmp_path)]) == 0
+    cells = shapes.runnable_cells()
+    assert len(cells) == 33
+    assert seen == [(a, s, multi) for multi in (False, True) for a, s in cells]
+    assert len(os.listdir(tmp_path)) == 66
+
+
+MEMORY_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+MEMORY_B, MEMORY_S = 8, 64
+
+PORT_MEMORY = textwrap.dedent("""
+    import json
+    import torch
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, roofline as RL
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dryrun.init_fake_world(8)
+    mesh = make_host_mesh(4, 2, device_type="cpu")
+    out = {}
+    for arch in %(ARCHS)r:
+        cfg = get_smoke(arch)
+        spec = ShapeSpec("decode", %(S)d, %(B)d, "decode")
+        specs = {"token": torch.empty((%(B)d, 1), dtype=torch.int32, device="meta"),
+                 "pos": torch.empty((), dtype=torch.int32, device="meta")}
+        step, args, state = dryrun._program(cfg, spec, mesh, False, specs)
+        memory = args[-1]
+        flops = RL.FlopCount()
+        with flops:
+            step(*args)
+        out[arch] = {"flops": flops.flops, "state": dryrun.state_bytes(*state),
+                     "memory": [list(m.shape) for m in memory],
+                     "memory_local": [list(m.to_local().shape) for m in memory]}
+    print(json.dumps(out))
+""") % {"ARCHS": MEMORY_ARCHS, "S": MEMORY_S, "B": MEMORY_B}
+
+REFERENCE_MEMORY = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import json
+    from repro.configs.registry import get_smoke
+    from repro.configs.shapes import ShapeSpec
+    from repro.launch import dryrun
+    from repro.launch.mesh import make_host_mesh
+    from repro.launch.serve import default_serve_plan
+    from repro.models import transformer as T
+
+    mesh = make_host_mesh(4, 2)
+    out = {}
+    for arch in %(ARCHS)r:
+        cfg = get_smoke(arch)
+        plan = default_serve_plan(cfg, mesh, ShapeSpec("decode", %(S)d, %(B)d, "decode"))
+        params = T.abstract_params(cfg)
+        cache = dryrun._abstract(T.abstract_cache(cfg, %(B)d, %(S)d))
+        out[arch] = {"state": sum(dryrun._sharded_bytes(t, s, 8) for t, s in (
+            (params, plan.param_shardings()), (cache, plan.cache_shardings())))}
+    print(json.dumps(out))
+""") % {"ARCHS": MEMORY_ARCHS, "S": MEMORY_S, "B": MEMORY_B}
+
+
+def test_mini_dryrun_of_decode_with_memory_matches_reference_state_bytes(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {name: subprocess.Popen([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, code in (("port", PORT_MEMORY), ("reference", REFERENCE_MEMORY))}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=240)
+            assert proc.returncode == 0, f"{name}: {out[-2000:]}{err[-6000:]}"
+            outs[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    for arch in MEMORY_ARCHS:
+        port, cfg = outs["port"][arch], registry.get_smoke(arch)
+        n, s_mem = ((cfg.n_layers, cfg.frontend_frames) if cfg.family == "encdec" else
+                    (cfg.n_layers // cfg.cross_attn_period, cfg.num_image_tokens))
+        want = [n, MEMORY_B, s_mem, cfg.n_kv_heads, cfg.hd]
+        assert port["memory"] == [want, want]
+        # the decode rules: batch over "model" (2), the memory's sequence over "data" (4)
+        local = [n, MEMORY_B // 2, -(-s_mem // 4), cfg.n_kv_heads, cfg.hd]
+        assert port["memory_local"] == [local, local]
+        assert port["flops"] > 0
+        assert port["state"] == outs["reference"][arch]["state"]

@@ -210,8 +210,9 @@ def test_sp_decode_attention_matches_reference(meshed, i):
 
 
 def test_meshed_plan_refuses_what_is_not_wired():
-    """Meshed adafactor (as the reference refuses it) and the vlm and encdec
-    families raise; the unmeshed plan keeps its device."""
+    """Meshed adafactor raises (as the reference refuses it); the vlm and
+    encdec families' meshed train and serve plans build; the unmeshed plan
+    keeps its device."""
     import torch
 
     from repro_torch.configs import registry
@@ -228,10 +229,10 @@ def test_meshed_plan_refuses_what_is_not_wired():
     with pytest.raises(NotImplementedError, match="adafactor"):
         train.make_train_step(plan)
     for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="not wired"):
-            train.default_plan(registry.get_smoke(arch), _Mesh())
-        with pytest.raises(NotImplementedError, match="not wired"):
-            serve.ServePlan(cfg=registry.get_smoke(arch), max_len=8,
-                            device=torch.device("cpu"), mesh=_Mesh())
+        meshed = train.default_plan(registry.get_smoke(arch), _Mesh())
+        assert meshed.mesh is not None and meshed.device == torch.device("cpu")
+        splan = serve.ServePlan(cfg=registry.get_smoke(arch), max_len=8,
+                                device=torch.device("cpu"), mesh=_Mesh())
+        assert splan.ctx.mesh is not None
     assert train.default_plan(cfg, device="cpu").device == torch.device("cpu")
     assert dataclasses.replace(plan, mesh=None).ctx.mesh is None

@@ -157,8 +157,9 @@ def test_init_params_seeded():
 
 def test_init_zeros_and_slice_by_slice(monkeypatch):
     """``"zeros"`` leaves (``A_log``, ``dt_bias``) are zero; a leaf larger
-    than ``DRAW_ELEMENTS`` is drawn slice by slice along its leading dims,
-    each slice as its own float32 draw, scaled by the fan-in std."""
+    than ``DRAW_ELEMENTS`` is drawn in runs of that many elements in its
+    memory order (here its 12 (8, 8) slices), each run its own float32
+    draw, scaled by the fan-in std."""
     from repro_torch.models import init
 
     cfg = registry.get_smoke("mamba2-1.3b")
