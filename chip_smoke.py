@@ -186,7 +186,9 @@ Phases, each of which must pass:
    wall-clock sojourn logged, and every model kernel launched;
 9. run the meshed programs on a (1, 1) mesh of one NCCL rank, each
    against its unmeshed run on the same seed, with the launch counts of
-   each path equal: (a) Qwen3-8B served as phase 5a; (b) Qwen3-1.7B's
+   each path equal: (a) Qwen3-8B served as phase 5a, and (a') again in
+   the serving-weight layout (``default_serve_plan(tp_weights=True)``),
+   the first decode logits within ``MESH_REL_L2``; (b) Qwen3-1.7B's
    train step; (c) Jamba's long_500k sequence-parallel decode; (d)
    Llama-3.2-Vision-11B (gates at ``VISION_GATE``) and Seamless-M4T
    served as phases 5f and 5g, the first decode logits within
@@ -195,7 +197,8 @@ Phases, each of which must pass:
    meshed ``Trainer`` of Qwen3-1.7B at ``CKPT_LAYERS`` layers that saves,
    a fresh one that restores every leaf bitwise and resumes, the losses
    against an unbroken run's; (g) ``compressed_psum`` through NCCL; (h)
-   the dry run of ``DRYRUN_CELLS`` in a subprocess, then
+   the dry run of ``DRYRUN_CELLS`` in a subprocess, and in the same one
+   ``DRYRUN_TP_CELLS`` under ``REPRO_SERVE_TP_WEIGHTS=1``, then
    ``table_roofline``.
 
 Phases 3, 4, 4b, each serving run of 5, the training run of 6, each
@@ -435,7 +438,11 @@ SEAMLESS_TRAIN_SEQ = 2048
 #: disk), CKPT_STEPS steps saved, as many resumed, against an unbroken run.
 CKPT_LAYERS, CKPT_STEPS = 2, 2
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
-                ("mixtral-8x22b", "long_500k"), ("seamless-m4t-large-v2", "decode_32k"))
+                ("qwen3-8b", "prefill_32k"), ("mixtral-8x22b", "long_500k"),
+                ("seamless-m4t-large-v2", "decode_32k"))
+#: Phase 9h's cells in the serving-weight layout, each also among
+#: DRYRUN_CELLS in the default one.
+DRYRUN_TP_CELLS = (("qwen3-8b", "decode_32k"), ("qwen3-8b", "prefill_32k"))
 #: The study phase (4b): the numerical study's sweep (N = 3-8 two-stage
 #: jobs) for workload sets STUDY_SETS, STUDY_TRIALS groups a (set, N) and
 #: STUDY_TRIALS_LAST at N = 8, each through evaluate_many on the card and
@@ -2586,8 +2593,10 @@ def phase_examples() -> dict:
     return out
 
 
-def mesh_serving(dev, mesh, cfg, unmeshed: dict, tag: str, setup=None) -> dict:
-    """Phases 9a and 9d: ``cfg`` served meshed through ``default_serve_plan``
+def mesh_serving(dev, mesh, cfg, unmeshed: dict, tag: str, setup=None,
+                 tp_weights: bool = False) -> dict:
+    """Phases 9a, 9a' and 9d: ``cfg`` served meshed through
+    ``default_serve_plan`` (with ``tp_weights``, the serving-weight layout)
     on the same weights (then ``setup(params, plan)``, if given), prompts,
     extras and token count as its unmeshed phase-5 ``generate``; the first
     decode step's logits held to that phase's, the tokens compared, the
@@ -2599,7 +2608,8 @@ def mesh_serving(dev, mesh, cfg, unmeshed: dict, tag: str, setup=None) -> dict:
     from repro_torch.models.frontends import make_extras
 
     plan = serve.default_serve_plan(
-        cfg, mesh, ShapeSpec("serve", SERVE_PROMPT + SERVE_STEPS + 1, SERVE_BATCH, "prefill"))
+        cfg, mesh, ShapeSpec("serve", SERVE_PROMPT + SERVE_STEPS + 1, SERVE_BATCH, "prefill"),
+        tp_weights=tp_weights)
     gen = torch.Generator(device=dev).manual_seed(SEED)  # phase 5's draws, in its order
     params = serve.init_weights(plan, gen)
     if setup is not None:
@@ -2615,7 +2625,9 @@ def mesh_serving(dev, mesh, cfg, unmeshed: dict, tag: str, setup=None) -> dict:
     rel = rel_l2(res.first_decode_logits.float().cpu(), unmeshed["first_decode_logits"].float())
     same_tokens = bool(torch.equal(res.tokens.cpu(), unmeshed["tokens"]))
     mean = lambda xs: sum(xs) / len(xs) * 1e3  # noqa: E731
-    log(f"{tag} (1, 1) mesh, rules {plan.rules.resolve(('batch', 'seq'), mesh)}: prefill "
+    log(f"{tag} (1, 1) mesh, batch {plan.rules.resolve(('batch', 'seq'), mesh)}, weight "
+        f"{plan.rules.resolve(('embed', 'mlp'), mesh)}, cache "
+        f"{plan.cache_ctx.rules.resolve(('batch', 'kv_seq'), mesh)}: prefill "
         f"{res.prefill_s * 1e3:.1f} ms (unmeshed {unmeshed['prefill_s'] * 1e3:.1f}); decode "
         f"{mean(res.decode_s):.2f} ms a token (unmeshed {mean(unmeshed['decode_s']):.2f}); "
         f"first decode logits rel L2 {rel:.3e} against phase 5's; tokens equal {same_tokens}; "
@@ -2894,8 +2906,10 @@ def mesh_compress(dev, mesh) -> dict:
 
 def mesh_dryrun() -> dict:
     """Phase 9h: the dry run of DRYRUN_CELLS on the (16, 16) mesh in its own
-    process (its ``fake`` group cannot share this one with NCCL), then
-    ``table_roofline`` on its cells."""
+    process (its ``fake`` group cannot share this one with NCCL), then in
+    the same process DRYRUN_TP_CELLS under ``REPRO_SERVE_TP_WEIGHTS=1``
+    (tagged ``tp``), then ``table_roofline`` on all their cells; each
+    switched cell's terms logged beside its default layout's."""
     import tempfile
 
     from repro_torch.launch import study
@@ -2903,10 +2917,14 @@ def mesh_dryrun() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         cells = os.path.join(tmp, "cells")
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        env.pop("REPRO_SERVE_TP_WEIGHTS", None)
         # one process for every cell: the CLI once a cell, its exit codes summed
-        code = ("import sys\nfrom repro_torch.launch import dryrun\n"
-                f"sys.exit(sum(dryrun.main(['--arch', a, '--shape', s, '--mesh', 'single', "
-                f"'--out', {cells!r}]) for a, s in {DRYRUN_CELLS!r}))\n")
+        cli = ("dryrun.main(['--arch', a, '--shape', s, '--mesh', 'single', "
+               f"'--out', {cells!r}] + tag) for a, s in ")
+        code = ("import os, sys\nfrom repro_torch.launch import dryrun\ntag = []\n"
+                f"rc = sum({cli}{DRYRUN_CELLS!r})\n"
+                "os.environ['REPRO_SERVE_TP_WEIGHTS'] = '1'\ntag = ['--tag', 'tp']\n"
+                f"sys.exit(rc + sum({cli}{DRYRUN_TP_CELLS!r}))\n")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                               text=True, timeout=600, cwd=tmp)
@@ -2914,10 +2932,20 @@ def mesh_dryrun() -> dict:
         for line in proc.stdout.splitlines():
             if line.startswith("["):
                 log(f"[mesh dryrun] {line}")
-        require(proc.returncode == 0, f"dry run of {DRYRUN_CELLS} failed: "
-                f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        require(proc.returncode == 0, f"dry run of {DRYRUN_CELLS} and {DRYRUN_TP_CELLS} "
+                f"failed: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
         rows = study.table_roofline(src=cells, out=os.path.join(tmp, "bench"))
-    require(len(rows) == len(DRYRUN_CELLS), f"table_roofline gave {len(rows)} rows")
+    require(len(rows) == len(DRYRUN_CELLS) + len(DRYRUN_TP_CELLS),
+            f"table_roofline gave {len(rows)} rows")
+    by_layout = {(r["arch"], r["shape"], r["tp_weights"]): r for r in rows}
+    for arch, shape in DRYRUN_TP_CELLS:
+        tp, default = by_layout.get((arch, shape, True)), by_layout.get((arch, shape, False))
+        require(tp is not None and default is not None, f"{arch} {shape}: a layout's row is missing")
+        log(f"[mesh dryrun] {arch} {shape} (16, 16): " + "; ".join(
+            f"{name} compute {r['compute_ms']:.4g} ms, memory {r['memory_ms']:.4g} ms, "
+            f"collective {r['collective_ms']:.4g} ms, dominant {r['dominant']}, state "
+            f"{r['state_gib_per_chip']:.4g} GiB/chip" for name, r in (("default", default),
+                                                                     ("tp_weights", tp))))
     log(json.dumps({"table_roofline": rows}))
     return {"wall_s": secs, "rows": rows}
 
@@ -2950,6 +2978,9 @@ def phase_mesh(dev, unmeshed: dict) -> dict:
             mesh = make_host_mesh(1, 1, device_type="cuda")
             out = {"serving": mesh_serving(dev, mesh, get_config("qwen3-8b"),
                                            unmeshed["qwen3-8b"], "[mesh qwen3-8b]"),
+                   "serving_tp": mesh_serving(dev, mesh, get_config("qwen3-8b"),
+                                              unmeshed["qwen3-8b"], "[mesh qwen3-8b tp]",
+                                              tp_weights=True),
                    "training": mesh_training(dev, mesh, get_config(TRAIN_ARCH), TRAIN_SEQ,
                                              "[mesh training qwen3-1.7b]"),
                    "long_decode": mesh_long_decode(dev, mesh),
@@ -3491,6 +3522,7 @@ def main() -> int:
             "cluster_schedule example": examples["cluster"],
             **{name: run for name, run in examples.items() if name.startswith("serve_smoke")},
             "qwen3-8b meshed": meshed["serving"],
+            "qwen3-8b meshed tp_weights": meshed["serving_tp"],
             "qwen3-1.7b meshed training": meshed["training"]["meshed"],
             "jamba long_500k sp decode": meshed["long_decode"],
             "jamba long_500k unmeshed decode": {

@@ -35,6 +35,15 @@ the reference's ``lower_cell`` builds it; like the reference's, the
 state it counts is the weights and the cache.  Artifacts: one JSON a
 cell under ``--out`` (default ``artifacts/dryrun_torch/``), which
 ``python -m repro_torch.launch.study --table roofline`` reads.
+
+``REPRO_SERVE_TP_WEIGHTS=1`` (the reference's variable, read when
+:func:`main` runs) serves the prefill and decode cells in the
+serving-weight layout (``default_serve_plan(tp_weights=True)``); train
+cells do not change, and each row records ``tp_weights``.  Under it the
+long_500k cells fail, as the reference's do: their batch of 1 does not
+divide by the ("pod", "data") axes that the layout shards it over::
+
+    REPRO_SERVE_TP_WEIGHTS=1 python -m repro_torch.launch.dryrun --mesh both --shape decode_32k --tag tp
 """
 
 from __future__ import annotations
@@ -61,6 +70,9 @@ from repro_torch.optim import adamw as opt
 __all__ = ["init_fake_world", "state_bytes", "memory_shape", "analyze_cell", "main"]
 
 OUT = os.path.join("artifacts", "dryrun_torch")
+#: The reference's switch: ``REPRO_SERVE_TP_WEIGHTS=1`` serves every
+#: prefill and decode cell in the serving-weight layout.
+TP_WEIGHTS_ENV = "REPRO_SERVE_TP_WEIGHTS"
 
 
 def init_fake_world(world: int) -> None:
@@ -98,9 +110,11 @@ def _placed(ctx, tree, logical):
     return tree_map(lambda t, log: ctx.distribute(t, log), tree, logical)
 
 
-def _program(cfg, spec, mesh, long_context: bool, specs: dict):
+def _program(cfg, spec, mesh, long_context: bool, specs: dict, tp_weights: bool = False):
     """(step, args, state trees) of one cell whose inputs are ``specs``
-    (:func:`configs.shapes.input_specs`), every tensor on ``meta``."""
+    (:func:`configs.shapes.input_specs`), every tensor on ``meta``; a
+    serving cell under ``tp_weights`` takes the serving-weight layout (a
+    train cell ignores it, as in the reference)."""
     params = T.abstract_params(cfg)
     logical = T.param_logical(cfg)
     if spec.kind == "train":
@@ -109,29 +123,34 @@ def _program(cfg, spec, mesh, long_context: bool, specs: dict):
         state = opt.adamw_init(params, plan.opt_cfg)
         batch = plan.place_batch(specs)
         return make_train_step(plan), (params, state, batch), (params, state.mu, state.nu)
-    plan = default_serve_plan(cfg, mesh, spec, long_context=long_context)
+    plan = default_serve_plan(cfg, mesh, spec, long_context=long_context, tp_weights=tp_weights)
     params = _placed(plan.ctx, params, logical)
     if spec.kind == "prefill":
         return make_prefill_fn(plan), (params, specs), (params,)
     cache = T.init_cache(cfg, spec.global_batch, spec.seq_len, "meta", plan.cache_ctx)
-    token = plan.place(specs["token"], ("batch", None))
+    token = plan.place(specs["token"], ("batch", None), "the token")
     args = (params, token, cache, spec.seq_len - 1)
     mem = memory_shape(cfg, spec.global_batch)
     if mem is not None:
         args += (tuple(plan.place(torch.empty(mem, dtype=cfg.dtype, device="meta"),
-                                  T.MEMORY_LOGICAL) for _ in "kv"),)
+                                  T.MEMORY_LOGICAL, "the memory") for _ in "kv"),)
     return make_decode_fn(plan), args, (params, cache)
 
 
-def analyze_cell(arch: str, shape: str, multi_pod: bool, overrides: dict | None = None) -> dict:
-    """Run one cell under the counting modes; its JSON row."""
+def analyze_cell(arch: str, shape: str, multi_pod: bool, overrides: dict | None = None,
+                 tp_weights: bool = False) -> dict:
+    """Run one cell under the counting modes; its JSON row.  A cell whose
+    batch does not divide by its mesh axes raises ``ValueError`` (under
+    ``tp_weights``, every long_500k cell: the reference cannot lower them
+    either)."""
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     cfg = arch_shape_config(arch, shape)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     spec = SHAPES[shape]
     t0 = time.perf_counter()
-    step, args, state = _program(cfg, spec, mesh, shape == "long_500k", input_specs(arch, shape))
+    step, args, state = _program(cfg, spec, mesh, shape == "long_500k", input_specs(arch, shape),
+                                 tp_weights)
     t_setup = time.perf_counter() - t0
     flops, coll, hbm = RL.FlopCount(), RL.CollectiveBytes(), RL.HbmBytes()
     t0 = time.perf_counter()
@@ -149,6 +168,7 @@ def analyze_cell(arch: str, shape: str, multi_pod: bool, overrides: dict | None 
         "n_devices": int(n_dev),
         "kind": spec.kind,
         "overrides": overrides or {},
+        "tp_weights": tp_weights and spec.kind != "train",
         "t_setup_s": t_setup,
         "t_run_s": t_run,
         "state_bytes_per_chip": int(state_bytes(*state)),
@@ -191,6 +211,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="artifact filename suffix")
     args = ap.parse_args(argv)
     overrides = _parse_overrides(args.override)
+    tp_weights = os.environ.get(TP_WEIGHTS_ENV, "") == "1"
 
     cells = runnable_cells()
     if args.arch:
@@ -210,7 +231,7 @@ def main(argv=None) -> int:
             if args.tag:
                 tag += f"__{args.tag}"
             try:
-                row = analyze_cell(arch, shape, multi, overrides)
+                row = analyze_cell(arch, shape, multi, overrides, tp_weights)
                 with open(os.path.join(args.out, tag + ".json"), "w") as f:
                     json.dump(row, f, indent=1)
                 r = row["roofline"]

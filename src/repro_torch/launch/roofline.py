@@ -195,7 +195,8 @@ def model_flops(cfg, shape_spec, mode: str) -> float:
 
 @dataclasses.dataclass
 class RooflineReport:
-    """The per-cell dry-run JSONs as the roofline table."""
+    """The per-cell dry-run JSONs as the roofline table (a row of the
+    serving-weight layout marked ``tp`` in its mesh column)."""
 
     rows: list[dict]
 
@@ -205,7 +206,7 @@ class RooflineReport:
         for p in paths:
             with open(p) as f:
                 rows.append(json.load(f))
-        rows.sort(key=lambda r: (r["arch"], r["shape"], r["mesh"]))
+        rows.sort(key=lambda r: (r["arch"], r["shape"], r["mesh"], r.get("tp_weights", False)))
         return RooflineReport(rows)
 
     def to_markdown(self) -> str:
@@ -218,7 +219,7 @@ class RooflineReport:
         for r in self.rows:
             t = r["roofline"]
             lines.append(
-                f"| {r['arch']} | {r['shape']} | {r['mesh']} "
+                f"| {r['arch']} | {r['shape']} | {r['mesh']}{' tp' if r.get('tp_weights') else ''} "
                 f"| {t['compute']*1e3:.2f} | {t['memory']*1e3:.2f} "
                 f"| {t['collective']*1e3:.2f} | {t['dominant']} "
                 f"| {t['roofline_fraction']:.2f} "

@@ -68,9 +68,11 @@ from repro_torch.parallel.sharding import (
     DEFAULT_RULES,
     AxisRules,
     ShardingCtx,
+    check_divisible,
     is_dtensor,
     mesh_axis_sizes,
     rules_for,
+    serving_weight_rules,
 )
 
 __all__ = ["ServePlan", "Generation", "default_serve_plan", "init_weights", "make_prefill_fn",
@@ -99,8 +101,10 @@ class ServePlan:
     def cache_ctx(self) -> ShardingCtx:
         return ShardingCtx(self.mesh, self.cache_rules or self.rules)
 
-    def place(self, t: torch.Tensor, logical: tuple):
-        """A tensor every rank holds whole (tokens), placed by ``logical``."""
+    def place(self, t: torch.Tensor, logical: tuple, name: str = "a tensor"):
+        """A tensor every rank holds whole (tokens), placed by ``logical``;
+        ``ValueError`` if a sharded dim does not divide by its mesh axes."""
+        check_divisible(name, t.shape, logical, self.mesh, self.rules)
         return self.ctx.distribute(t, logical)
 
     def place_batch(self, batch: dict) -> dict:
@@ -109,21 +113,36 @@ class ServePlan:
         and an unmeshed plan's batch pass as they are."""
         if self.mesh is None:
             return batch
-        return {k: v if is_dtensor(v) else self.place(v, batch_logical(k))
+        return {k: v if is_dtensor(v) else self.place(v, batch_logical(k), f"batch[{k!r}]")
                 for k, v in batch.items()}
 
 
 def default_serve_plan(cfg: ModelConfig, mesh, shape_spec, *, long_context: bool = False,
-                       device=None) -> ServePlan:
+                       tp_weights: bool = False, device=None) -> ServePlan:
     """The reference's serving plan for a shape (``configs.shapes.ShapeSpec``):
     a decode shape shards its batch over ("pod", "model") unless it is
-    long-context; the cache shards its batch over the whole mesh.
-    ``device=None`` is the card, or under a mesh the mesh's device type."""
+    long-context; the cache shards its batch over the whole mesh.  With
+    ``tp_weights`` the serving-weight layout
+    (:func:`~repro_torch.parallel.sharding.serving_weight_rules`): weights
+    tensor-parallel over "model" with their embed dim replicated, the batch
+    over ("pod", "data"), and the cache follows the same rules (its
+    sequence over "model").  Under a mesh the shape's batch must divide by
+    the axes that shard it under both rule tables, else ``ValueError``, as
+    the reference's ``jit`` refuses it (a long-context batch of 1 under
+    ``tp_weights``, say).  ``device=None`` is the card, or under a mesh the
+    mesh's device type."""
     model_axis = mesh_axis_sizes(mesh).get("model", 1) if mesh is not None else 1
     decode = shape_spec.kind == "decode" and not long_context
     rules = rules_for(cfg, long_context=long_context, decode_batch=decode, model_axis=model_axis)
-    cache_rules = rules_for(cfg, long_context=long_context, decode_batch=True,
-                            model_axis=model_axis)
+    if tp_weights:
+        rules = serving_weight_rules(rules)
+        cache_rules = rules
+    else:
+        cache_rules = rules_for(cfg, long_context=long_context, decode_batch=True,
+                                model_axis=model_axis)
+    if mesh is not None:
+        for r in (rules, cache_rules):
+            check_divisible("the batch", (shape_spec.global_batch,), ("batch",), mesh, r)
     if device is None and mesh is not None:
         device = mesh.device_type
     return ServePlan(cfg=cfg, max_len=shape_spec.seq_len, device=resolve_device(device),
@@ -176,10 +195,10 @@ def make_decode_fn(plan: ServePlan) -> Callable:
     @_no_grad(plan)
     def decode(params, token, cache, pos: int, memory=None):
         if plan.mesh is not None and not is_dtensor(token):
-            token = plan.place(token, ("batch", None))
+            token = plan.place(token, ("batch", None), "the token")
         if plan.mesh is not None and memory is not None:
             memory = tuple(plan.ctx.constrain(m, T.MEMORY_LOGICAL) if is_dtensor(m) else
-                           plan.place(m, T.MEMORY_LOGICAL) for m in memory)
+                           plan.place(m, T.MEMORY_LOGICAL, "the memory") for m in memory)
         return T.decode_step(params, token, cache, pos, cfg, memory, ctx=plan.ctx, sp=plan.sp)
 
     return decode

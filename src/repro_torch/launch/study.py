@@ -536,8 +536,8 @@ def table_eval_mc(full: bool = False, smoke: bool = False, device=None, out: str
 
 
 def table_roofline(full: bool = False, out: str = OUT, src: str = DRYRUN):
-    """The dry run's cells as the roofline table: per (arch, shape, mesh)
-    the compute, memory and collective terms in ms on the modelled H100
+    """The dry run's cells as the roofline table: per (arch, shape, mesh,
+    serving-weight layout or not) the compute, memory and collective terms in ms on the modelled H100
     machine, the dominant one, the compute share of the bound, the useful
     share of the executed FLOPs and the state a chip holds."""
     from repro_torch.launch.roofline import RooflineReport
@@ -549,6 +549,7 @@ def table_roofline(full: bool = False, out: str = OUT, src: str = DRYRUN):
     report = RooflineReport.load(paths)
     print(report.to_markdown())
     rows = [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+             "tp_weights": r.get("tp_weights", False),
              "compute_ms": r["roofline"]["compute"] * 1e3,
              "memory_ms": r["roofline"]["memory"] * 1e3,
              "collective_ms": r["roofline"]["collective"] * 1e3,

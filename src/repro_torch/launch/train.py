@@ -64,6 +64,7 @@ from repro_torch.parallel.sharding import (
     DEFAULT_RULES,
     AxisRules,
     ShardingCtx,
+    check_divisible,
     is_dtensor,
     mesh_axis_sizes,
     placements,
@@ -113,11 +114,14 @@ class TrainPlan:
     def place_batch(self, batch: dict) -> dict:
         """A batch whose tensors every rank holds whole, as DTensors placed
         by :meth:`batch_shardings` (each rank keeps its shard); unmeshed,
-        the batch itself."""
+        the batch itself.  ``ValueError`` if a sharded dim does not divide
+        by its mesh axes, as the reference's ``jit`` refuses it."""
         if self.mesh is None:
             return batch
         from torch.distributed.tensor import distribute_tensor
 
+        for k, v in batch.items():
+            check_divisible(f"batch[{k!r}]", v.shape, batch_logical(k), self.mesh, self.rules)
         shardings = self.batch_shardings(batch)
         return {k: distribute_tensor(v, self.mesh, shardings[k], src_data_rank=None)
                 for k, v in batch.items()}

@@ -30,6 +30,7 @@ in GSPMD (DTensor splits a dim over its mesh dims in mesh order).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping, Sequence
 
 import torch
@@ -43,6 +44,7 @@ __all__ = [
     "all_reduce",
     "contiguous_grads",
     "assign",
+    "check_divisible",
     "is_dtensor",
     "local_call",
     "local_offsets",
@@ -360,6 +362,25 @@ class ShardingCtx:
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(_axis_names(mesh), tuple(mesh.shape)))
+
+
+def check_divisible(name: str, shape: Sequence[int], logical: Sequence[str | None], mesh,
+                    rules: AxisRules) -> None:
+    """Raise ``ValueError`` when a dim of ``shape`` does not divide by the
+    product of the mesh axes that ``rules`` resolve its logical axis to on
+    ``mesh``: the input the reference's ``jit`` refuses, where DTensor
+    would split it into uneven shards (some ranks empty).  Reads only the
+    mesh's axis names and sizes."""
+    sizes = mesh_axis_sizes(mesh)
+    for d, axes in enumerate(rules.resolve(logical, mesh)):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        n = math.prod(sizes[a] for a in axes)
+        if shape[d] % n:
+            raise ValueError(
+                f"{name} of logical axes {tuple(logical)} is sharded over mesh axes {axes} "
+                f"(product {n}) on dimension {d}, which implies that the global size of its "
+                f"dimension {d} should be divisible by {n}, but it is equal to {shape[d]} "
+                f"(full shape: {tuple(shape)})")
 
 
 def rules_for(

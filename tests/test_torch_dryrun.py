@@ -203,13 +203,15 @@ def test_dry_run_runs_every_runnable_cell_on_each_mesh(tmp_path, monkeypatch):
     (16, 16) and the (2, 16, 16) mesh (the analysis itself stubbed)."""
     from repro_torch.launch import dryrun
 
-    seen = []
+    seen, layouts = [], []
 
-    def analyze(arch, shape, multi, overrides):
+    def analyze(arch, shape, multi, overrides, tp_weights=False):
         seen.append((arch, shape, multi))
+        layouts.append(tp_weights)
         return {"t_run_s": 0.0, "flops_per_chip": 1.0, "state_bytes_per_chip": 0,
                 "roofline": {"dominant": "compute", "roofline_fraction": 1.0}}
 
+    monkeypatch.delenv("REPRO_SERVE_TP_WEIGHTS", raising=False)
     monkeypatch.setattr(dryrun, "init_fake_world", lambda world: None)
     monkeypatch.setattr(dryrun, "analyze_cell", analyze)
     monkeypatch.setattr(dryrun.dist, "destroy_process_group", lambda: None)
@@ -218,6 +220,7 @@ def test_dry_run_runs_every_runnable_cell_on_each_mesh(tmp_path, monkeypatch):
     assert len(cells) == 33
     assert seen == [(a, s, multi) for multi in (False, True) for a, s in cells]
     assert len(os.listdir(tmp_path)) == 66
+    assert not any(layouts), "without the switch no cell takes the serving-weight layout"
 
 
 MEMORY_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")

@@ -6,7 +6,8 @@ qwen3-1.7b, mixtral-8x22b, mamba2-1.3b and jamba-v0.1-52b SMOKE in
 float32; ``ref_attention`` at four cache lengths) are computed here and
 handed to 8 gloo ranks, which run the port's meshed programs
 (``default_plan`` + ``make_train_step``, ``default_serve_plan`` +
-``make_prefill_fn`` / ``make_decode_fn``, ``sp_decode_attention``) in
+``make_prefill_fn`` / ``make_decode_fn``, in the default and the
+serving-weight layout, ``sp_decode_attention``) in
 one spawn: a script under ``tmp_path``, its ranks joined through a
 ``file://`` store there (never a TCP port: other test workers run at the
 same time), the whole spawn under a 300 s limit.  Bars: the loss within
@@ -96,6 +97,19 @@ RANKS = textwrap.dedent('''
                 lg, cache = step(weights, torch.from_numpy(tok).long(), cache, %(S)d + i)
                 decoded.append(lg.full_tensor().numpy())
             out[arch] = {"loss": float(metrics["loss"]), "params": new, "logits": decoded}
+            # the serving-weight layout: the same prefill and decode steps
+            tplan = serve.default_serve_plan(cfg, mesh, Shape(%(S)d + %(STEPS)d, %(B)d),
+                                             tp_weights=True)
+            weights = tree_map(lambda p, l: tplan.ctx.distribute(p, l),
+                               from_reference(d["params"], cfg), logical)
+            logits, cache = serve.make_prefill_fn(tplan)(
+                weights, {"tokens": torch.from_numpy(d["prompt"]).long()})
+            decoded = [logits.full_tensor().numpy()]
+            step = serve.make_decode_fn(tplan)
+            for i, tok in enumerate(d["steps"]):
+                lg, cache = step(weights, torch.from_numpy(tok).long(), cache, %(S)d + i)
+                decoded.append(lg.full_tensor().numpy())
+            out[arch]["tp_logits"] = decoded
 
         ctx = ShardingCtx(mesh, LONG_CONTEXT_RULES)
         q, k, v = (torch.from_numpy(a) for a in data["attention"]["qkv"])
@@ -197,6 +211,17 @@ def test_meshed_train_step_matches_single_device_reference(meshed, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_meshed_prefill_and_decode_match_single_device_reference(meshed, arch):
     got, want = meshed[0][arch]["logits"], meshed[1][arch]["logits"]
+    assert len(got) == len(want) == STEPS + 1
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_weights_prefill_and_decode_match_single_device_reference(meshed, arch):
+    """``default_serve_plan(tp_weights=True)``: the weights tensor-parallel
+    over "model" only, the batch over "data", the cache's sequence over
+    "model" (``sp_decode_attention`` combines over "model")."""
+    got, want = meshed[0][arch]["tp_logits"], meshed[1][arch]["logits"]
     assert len(got) == len(want) == STEPS + 1
     for g, w in zip(got, want):
         _close(g, w, 1e-4)
