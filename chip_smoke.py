@@ -2940,7 +2940,8 @@ def mesh_dryrun() -> dict:
     by_layout = {(r["arch"], r["shape"], r["tp_weights"]): r for r in rows}
     for arch, shape in DRYRUN_TP_CELLS:
         tp, default = by_layout.get((arch, shape, True)), by_layout.get((arch, shape, False))
-        require(tp is not None and default is not None, f"{arch} {shape}: a layout's row is missing")
+        require(tp is not None and default is not None,
+                f"{arch} {shape}: a layout's row is missing")
         log(f"[mesh dryrun] {arch} {shape} (16, 16): " + "; ".join(
             f"{name} compute {r['compute_ms']:.4g} ms, memory {r['memory_ms']:.4g} ms, "
             f"collective {r['collective_ms']:.4g} ms, dominant {r['dominant']}, state "

@@ -43,7 +43,7 @@ cells do not change, and each row records ``tp_weights``.  Under it the
 long_500k cells fail, as the reference's do: their batch of 1 does not
 divide by the ("pod", "data") axes that the layout shards it over::
 
-    REPRO_SERVE_TP_WEIGHTS=1 python -m repro_torch.launch.dryrun --mesh both --shape decode_32k --tag tp
+    REPRO_SERVE_TP_WEIGHTS=1 python -m repro_torch.launch.dryrun --mesh both --shape decode_32k
 """
 
 from __future__ import annotations

@@ -25,7 +25,14 @@ the plan's rules (under a decode shape's rules its batch over ("pod",
 cache with the sequence-parallel
 :func:`~repro_torch.models.attention.sp_decode_attention` and to the
 memory through the attention kernel's DTensor route.  Every family runs
-meshed.
+meshed.  ``default_serve_plan(..., tp_weights=True)`` is the
+serving-weight layout: no weight is sharded over the data axes (so none
+is gathered a token), the batch lies on ("pod", "data") and the cache
+follows the same rules, its sequence over "model" (where
+``sp_decode_attention`` then combines).  A batch that does not divide by
+the mesh axes that shard it raises ``ValueError``, as the reference's
+``jit`` refuses it.  The command line has no switch for the layout, as
+the reference's has none.
 
 Command line (random weights from ``--seed``; the real weights are not
 in the repository; the vlm and encdec families' image or frame
@@ -101,9 +108,10 @@ class ServePlan:
     def cache_ctx(self) -> ShardingCtx:
         return ShardingCtx(self.mesh, self.cache_rules or self.rules)
 
-    def place(self, t: torch.Tensor, logical: tuple, name: str = "a tensor"):
+    def place(self, t: torch.Tensor, logical: tuple, name: str):
         """A tensor every rank holds whole (tokens), placed by ``logical``;
-        ``ValueError`` if a sharded dim does not divide by its mesh axes."""
+        ``ValueError`` naming it ``name`` if a sharded dim does not divide by
+        its mesh axes."""
         check_divisible(name, t.shape, logical, self.mesh, self.rules)
         return self.ctx.distribute(t, logical)
 

@@ -537,9 +537,10 @@ def table_eval_mc(full: bool = False, smoke: bool = False, device=None, out: str
 
 def table_roofline(full: bool = False, out: str = OUT, src: str = DRYRUN):
     """The dry run's cells as the roofline table: per (arch, shape, mesh,
-    serving-weight layout or not) the compute, memory and collective terms in ms on the modelled H100
-    machine, the dominant one, the compute share of the bound, the useful
-    share of the executed FLOPs and the state a chip holds."""
+    serving-weight layout or not) the compute, memory and collective terms
+    in ms on the modelled H100 machine, the dominant one, the compute share
+    of the bound, the useful share of the executed FLOPs and the state a
+    chip holds."""
     from repro_torch.launch.roofline import RooflineReport
 
     paths = sorted(glob.glob(os.path.join(src, "*.json")))

@@ -73,8 +73,22 @@ def _heads(x: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx, heads: str) -> to
     # gathered over its FSDP axes first, so that the product (and its weight
     # gradient) keeps whole heads
     w = ctx.constrain(w.reshape(d, h * k), (None, "q_heads" if heads == "act_heads" else heads))
-    out = ctx.constrain(x @ w, ("batch", "seq", heads))
+    if _seq_sharded(x):
+        # DTensor (torch 2.11) cannot fold a sharded sequence (the vision
+        # model's image tokens on "kv_seq" under the serving-weight layout)
+        # into the rows of one matrix product: a batched product instead
+        prod = torch.bmm(x, w.unsqueeze(0).expand(x.shape[0], d, h * k))
+    else:
+        prod = x @ w
+    out = ctx.constrain(prod, ("batch", "seq", heads))
     return out.reshape(*x.shape[:-1], h, k)
+
+
+def _seq_sharded(x: torch.Tensor) -> bool:
+    """Whether ``x`` (B, S, D) is a DTensor whose sequence dim is sharded."""
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(x) and any(isinstance(a, Shard) and a.dim == 1 for a in x.placements)
 
 
 def _project_q(p, x, cfg: ModelConfig, ctx: ShardingCtx, positions):

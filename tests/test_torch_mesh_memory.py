@@ -10,7 +10,8 @@ NumPy from a seed.  The reference computes a train step
 (``make_train_step``), a prefill with the extras, ``prime_memory(params,
 cfg, ctx, batch)`` and 4 decode steps (``decode_step(..., memory=)``);
 8 gloo ranks run the port's meshed ``default_plan`` + ``make_train_step``
-and, under a prefill shape's and a decode shape's ``default_serve_plan``,
+and, under a prefill shape's and a decode shape's ``default_serve_plan``
+and the serving-weight layout's (``tp_weights=True``),
 ``make_prefill_fn``, ``make_prime_fn`` and ``make_decode_fn`` in one
 spawn (a script under ``tmp_path``, a ``file://`` store there, under a
 300 s limit).  Bars: the loss within 1e-5 relative, the updated
@@ -53,6 +54,8 @@ F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
 GATE = 0.5
 B, S, STEPS = 8, 16, 4
 KINDS = ("prefill", "decode")
+#: the spawn's serving plans: (shape kind, tp_weights)
+LAYOUTS = tuple((kind, False) for kind in KINDS) + (("prefill", True),)
 
 RANKS = textwrap.dedent('''
     import dataclasses, logging, pickle, sys
@@ -100,8 +103,9 @@ RANKS = textwrap.dedent('''
                                                                  {**batch, **extras})
             out[arch] = {"loss": float(metrics["loss"]),
                          "params": [p.full_tensor().numpy() for p in tree_leaves(params)]}
-            for kind in %(KINDS)r:
-                splan = serve.default_serve_plan(cfg, mesh, Shape(%(S)d + %(STEPS)d, %(B)d, kind))
+            for kind, tp in %(LAYOUTS)r:
+                splan = serve.default_serve_plan(cfg, mesh, Shape(%(S)d + %(STEPS)d, %(B)d, kind),
+                                                 tp_weights=tp)
                 weights = tree_map(lambda p, l: splan.ctx.distribute(p, l),
                                    from_reference(d["params"], cfg), logical)
                 prompt = {"tokens": torch.from_numpy(d["prompt"]).long(), **extras}
@@ -113,7 +117,7 @@ RANKS = textwrap.dedent('''
                     lg, cache = step(weights, torch.from_numpy(tok).long(), cache, %(S)d + i,
                                      memory)
                     decoded.append(lg.full_tensor().numpy())
-                out[arch][kind] = decoded
+                out[arch]["tp_weights" if tp else kind] = decoded
         if rank == 0:
             with open(out_path, "wb") as f:
                 pickle.dump(out, f)
@@ -123,7 +127,7 @@ RANKS = textwrap.dedent('''
     if __name__ == "__main__":
         store, data_path, out_path = sys.argv[1:]
         mp.spawn(run, args=(8, store, data_path, out_path), nprocs=8)
-''') % {"S": S, "STEPS": STEPS, "B": B, "KINDS": KINDS}
+''') % {"S": S, "STEPS": STEPS, "B": B, "LAYOUTS": LAYOUTS}
 
 
 def _close(got, want, rtol):
@@ -224,6 +228,16 @@ def test_meshed_prefill_prime_and_decode_match_single_device_reference(meshed, a
     """Under a prefill shape's rules and a decode shape's (the memory's
     batch over "model", its sequence over "data")."""
     got, want = meshed[0][arch][kind], meshed[1][arch]["logits"]
+    assert len(got) == len(want) == STEPS + 1
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_weights_prefill_prime_and_decode_match_single_device_reference(meshed, arch):
+    """Under the serving-weight layout (the image tokens' sequence, the
+    memory's and the cache's on "model")."""
+    got, want = meshed[0][arch]["tp_weights"], meshed[1][arch]["logits"]
     assert len(got) == len(want) == STEPS + 1
     for g, w in zip(got, want):
         _close(g, w, 1e-4)

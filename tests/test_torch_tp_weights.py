@@ -44,6 +44,7 @@ from torch.distributed.tensor import Replicate, Shard
 from repro.configs import registry as ref_registry
 from repro.configs import shapes as ref_shapes
 from repro.launch import serve as ref_serve
+from repro.parallel import sharding as ref_sharding
 from repro_torch.configs import registry
 from repro_torch.configs.shapes import LONG_OK, SHAPES, ShapeSpec, runnable_cells
 from repro_torch.launch import serve, train
@@ -105,11 +106,16 @@ def test_tp_plan_places_every_leaf_as_the_reference(arch, shape, mesh):
         want = [_ref_placements(s, names) for s in _ref_leaves(want)]
         assert len(got) == len(want) > 0
         assert got == want
-    # the layout itself: no weight is sharded over the data axes, and the
-    # cache's sequence lies on "model"
+    # the decode's cross memory, placed by MEMORY_LOGICAL under the plan's rules
+    memory = ref_sharding.logical_sharding(T.MEMORY_LOGICAL, ref_plan.mesh, ref_plan.rules)
+    assert plan.ctx.placements(T.MEMORY_LOGICAL) == _ref_placements(memory, names)
+    # the layout itself: no weight is sharded over the data axes, so
+    # ``ctx.weight`` (the weight with its "embed" dim replicated) gathers
+    # nothing; the cache's sequence lies on "model"
     for log in tree_leaves(T.param_logical(cfg)):
-        assert all(pl == Replicate() for a, pl in zip(names, plan.ctx.placements(log))
-                   if a != "model"), log
+        placed = plan.ctx.placements(log)
+        assert all(pl == Replicate() for a, pl in zip(names, placed) if a != "model"), log
+        assert plan.ctx.placements(tuple(None if a == "embed" else a for a in log)) == placed
     cache = plan.cache_ctx.placements(("batch", "kv_seq", "kv_heads", "head_dim"))
     assert cache[names.index("model")] == Shard(1)
 
@@ -245,7 +251,8 @@ def test_place_batch_refuses_a_batch_that_does_not_divide():
     devices), and names the entry; a divisible batch passes the check."""
     cfg, fake = registry.get_smoke("qwen3-1.7b"), _Mesh((4, 2))
     plan = serve.default_serve_plan(cfg, fake, ShapeSpec("p", 16, 8, "prefill"))
-    with pytest.raises(ValueError, match=r"batch\['tokens'\].*divisible by 4, but it is equal to 3"):
+    with pytest.raises(ValueError,
+                       match=r"batch\['tokens'\].*divisible by 4, but it is equal to 3"):
         plan.place_batch({"tokens": torch.zeros((3, 16), dtype=torch.long)})
     with pytest.raises(ValueError, match="the token.*divisible by 4, but it is equal to 3"):
         plan.place(torch.zeros((3, 1), dtype=torch.long), ("batch", None), "the token")
