@@ -31,6 +31,14 @@ exactly the reference's order, so one seed gives the reference's numbers.
 Conventions: a combination with zero successful jobs contributes 0 (the
 paper's Eqs. (7)-(9) sum from l >= 1 successes).
 
+With :mod:`repro_torch.obs.profiling` on, the host work before each op
+call is a span ``entry.plan.<name>``: ``group`` (:func:`evaluate_many`'s
+combination count and Monte-Carlo seed), ``rank``, ``random`` and
+``optimal`` (the order, or the N! orders), ``static`` (the static op's
+padded arrays and checks) and a stage-level policy's name (its index
+table, padded arrays and stage durations).  No plan span holds an op
+call or another plan span.
+
 One departure from the reference, on purpose: the combination count K
 is a Python integer (``math.prod``), where the reference takes
 ``np.prod`` in int64, which wraps at 63 or more two-stage jobs and then
@@ -52,6 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.sojourn_eval import rng as kernel_rng
 from repro_torch.kernels.sojourn_eval import sojourn_eval, sojourn_eval_dynamic
 from repro_torch.kernels.sojourn_eval.ref import mixed_radix_strides
+from repro_torch.obs import profiling
 
 __all__ = [
     "MAX_EXACT_COMBOS",
@@ -226,13 +235,14 @@ def expected_sojourn_static(
     float for one order, a (P,) array for a batch, and ``(e_succ,
     e_all)`` with ``also_all_jobs``.
     """
-    orders = np.asarray(orders, dtype=np.int32)
-    single = orders.ndim == 1
-    if single:
-        orders = orders[None]
-    sizes, probs, num_stages = policies.padded_arrays(jobs)
-    if samples is None and outcomes is None:
-        _check_exact(jobs)
+    with profiling.span("entry.plan.static"):
+        orders = np.asarray(orders, dtype=np.int32)
+        single = orders.ndim == 1
+        if single:
+            orders = orders[None]
+        sizes, probs, num_stages = policies.padded_arrays(jobs)
+        if samples is None and outcomes is None:
+            _check_exact(jobs)
     e_succ, e_all = sojourn_eval(
         sizes, probs, num_stages, orders, outcomes=outcomes, weights=weights,
         samples=samples, device=device,
@@ -261,12 +271,13 @@ def expected_sojourn_dynamic(
     ``outcomes``/``weights`` run :func:`_dynamic_batch` on one server
     (``n_servers > 1`` raises there).
     """
-    _, probs, num_stages = policies.padded_arrays(jobs)
-    idx_table = policies.index_table(jobs, policy)
-    stage_durs = policies.stage_durations(jobs)
-    if samples is not None or outcomes is None:
-        if samples is None:
+    with profiling.span(f"entry.plan.{policy}"):
+        _, probs, num_stages = policies.padded_arrays(jobs)
+        idx_table = policies.index_table(jobs, policy)
+        stage_durs = policies.stage_durations(jobs)
+        if samples is None and outcomes is None:
             _check_exact(jobs)
+    if samples is not None or outcomes is None:
         e_succ, _ = sojourn_eval_dynamic(
             probs, stage_durs, num_stages, idx_table,
             samples=samples, n_servers=n_servers, device=device,
@@ -297,7 +308,8 @@ def optimal_order(
     n = len(jobs)
     if n > max_n:
         raise ValueError(f"exhaustive search with N={n} > {max_n} is too expensive")
-    orders = np.array(list(itertools.permutations(range(n))), dtype=np.int32)
+    with profiling.span("entry.plan.optimal"):
+        orders = np.array(list(itertools.permutations(range(n))), dtype=np.int32)
     vals = expected_sojourn_static(jobs, orders, device=device)
     best = int(np.argmin(vals))
     return orders[best], float(vals[best])
@@ -318,17 +330,14 @@ def evaluate(
     RANK and RANDOM are static orders (Theorem III.1); SERPT and SR are
     stage-level index policies as in the paper's Section III-A examples.
     """
-    if policy == "rank":
-        return expected_sojourn_static(
-            jobs, policies.rank_order(jobs), outcomes, weights, samples=samples,
-            device=device,
-        )
-    if policy == "random":
-        if rng is None:
+    if policy in ("rank", "random"):
+        if policy == "random" and rng is None:
             raise ValueError("random policy needs an rng")
+        with profiling.span(f"entry.plan.{policy}"):
+            order = (policies.rank_order(jobs) if policy == "rank"
+                     else policies.random_order(jobs, rng))
         return expected_sojourn_static(
-            jobs, policies.random_order(jobs, rng), outcomes, weights,
-            samples=samples, device=device,
+            jobs, order, outcomes, weights, samples=samples, device=device
         )
     if policy == "optimal":
         _, val = optimal_order(jobs, device=device)
@@ -354,10 +363,11 @@ def evaluate_many(
       * otherwise: streaming Monte Carlo with one seed drawn from ``rng``
         and shared by every policy (common random numbers).
     """
-    k_total = exact_combination_count(jobs)
-    if k_total <= MAX_EXACT_COMBOS:
+    with profiling.span("entry.plan.group"):
+        exact = exact_combination_count(jobs) <= MAX_EXACT_COMBOS
+        seed = None if exact else int(rng.integers(0, kernel_rng.MAX_SEED))
+    if exact:
         return {alg: evaluate(jobs, alg, rng=rng, device=device) for alg in algs}
-    seed = int(rng.integers(0, kernel_rng.MAX_SEED))
     return {
         alg: evaluate(jobs, alg, rng=rng, samples=(seed, mc_samples), device=device)
         for alg in algs

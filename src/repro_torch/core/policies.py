@@ -254,10 +254,12 @@ def workload_cached(kind: str, jobs: Workload, compute):
     :mod:`repro_torch.obs.profiling` enabled, per-tier access latency is
     recorded (``prof.cache.mem_hit`` / ``disk_load`` / ``miss_compute``
     / ``disk_store`` / ``disk_evict`` histograms in the default
-    metrics registry).
+    metrics registry), and ``prof.cache.key`` times the digest alone:
+    its ``.calls`` counter is the number of lookups.
     """
     t_prof = _prof.tick()
     digest = workload_key(jobs)
+    _prof.tock("cache.key", t_prof)
     key = (kind, digest)
     with _cache_lock:
         counters = _cache_stats.setdefault(kind, [0, 0, 0, 0])

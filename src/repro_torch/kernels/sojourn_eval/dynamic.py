@@ -411,7 +411,10 @@ def sojourn_eval_dynamic(
     policies go to one launch.  ``device=None`` is the CUDA card.
 
     When :mod:`repro_torch.obs.profiling` is enabled, each call is timed
-    into a ``prof.sojourn_eval.dynamic.<mode>.<device>.seconds`` span.
+    into a ``prof.sojourn_eval.dynamic.<mode>.<device>.seconds`` span,
+    and inside it the kernel arguments into ``ops.args`` and the kernel
+    wrapper's call into ``ops.launch``; the bytes of the inputs built on
+    the host for the device add to the counter ``prof.ops.h2d_bytes``.
     """
     dev = resolve_device(device)
     mode = "mc" if samples is not None else "enum"
@@ -439,11 +442,14 @@ def dynamic_kernel_args(probs, stage_durs, num_stages, idx_tables, device,
     total_stages = int(num_stages.sum())
     if samples is not None:
         cdf = np.cumsum(probs, axis=1)  # on the host, as the reference does
-        return (f64(cdf), f64(stage_durs), f64(idx_tables), i32(num_stages),
-                int(samples[0]), int(samples[1]), total_stages)
-    return (f64(probs), f64(stage_durs), f64(idx_tables),
-            i32(mixed_radix_strides(num_stages)), i32(num_stages),
-            math.prod(int(m) for m in num_stages), total_stages)
+        tensors = (f64(cdf), f64(stage_durs), f64(idx_tables), i32(num_stages))
+        scalars = (int(samples[0]), int(samples[1]), total_stages)
+    else:
+        tensors = (f64(probs), f64(stage_durs), f64(idx_tables),
+                   i32(mixed_radix_strides(num_stages)), i32(num_stages))
+        scalars = (math.prod(int(m) for m in num_stages), total_stages)
+    profiling.count_bytes("ops.h2d_bytes", tensors)
+    return (*tensors, *scalars)
 
 
 def _sojourn_eval_dynamic(probs, stage_durs, num_stages, idx_tables, samples,
@@ -459,6 +465,8 @@ def _sojourn_eval_dynamic(probs, stage_durs, num_stages, idx_tables, samples,
     if samples is not None and int(samples[1]) <= 0:
         raise ValueError(f"n_samples must be positive; got {int(samples[1])}")
     launch = dynamic_sojourn_mc if samples is not None else dynamic_sojourn_enum
-    args = dynamic_kernel_args(probs, stage_durs, num_stages, idx_tables, dev, samples)
-    es, ea = launch(*args, n_servers=n_servers)
+    with profiling.span("ops.args"):
+        args = dynamic_kernel_args(probs, stage_durs, num_stages, idx_tables, dev, samples)
+    with profiling.span("ops.launch"):
+        es, ea = launch(*args, n_servers=n_servers)
     return es.cpu().numpy(), ea.cpu().numpy()

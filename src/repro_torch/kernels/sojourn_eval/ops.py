@@ -24,6 +24,12 @@ Orders are evaluated in batches of the reference's size
 explicit tables on the card, whose orders go to the kernel's wrapper in
 one call (:func:`_outcome_batch`); the inputs' job axis is permuted on the
 host per order (:func:`static_kernel_args`, :func:`outcomes_kernel_args`).
+
+With :mod:`repro_torch.obs.profiling` on, each call is a span
+``sojourn_eval.static.<mode>.<device>``, and inside it each batch's
+kernel arguments a span ``ops.args`` and its kernel wrapper's call a span
+``ops.launch``; the bytes of the inputs built on the host for the device
+add to the counter ``prof.ops.h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ def permuted_inputs(tables, orders_b: np.ndarray, device) -> list[torch.Tensor]:
         a = np.take(a, orders_b, axis=0)
         dtype = np.float64 if np.issubdtype(a.dtype, np.floating) else np.int32
         out.append(torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device))
+    profiling.count_bytes("ops.h2d_bytes", out)
     return out
 
 
@@ -142,9 +149,11 @@ def outcome_tables(outcomes, weights, num_stages, device) -> tuple[torch.Tensor,
         outcomes = outcomes.astype(np.int32)
     table = torch.as_tensor(np.ascontiguousarray(outcomes), device=device)
     limit = torch.as_tensor(num_stages.astype(np.int32), device=device)
+    weights = torch.as_tensor(weights, device=device)
+    profiling.count_bytes("ops.h2d_bytes", (table, limit, weights))
     if table.numel() and bool(((table < 0) | (table >= limit)).any()):
         raise ValueError(bad)
-    return table, torch.as_tensor(weights, device=device)
+    return table, weights
 
 
 def outcomes_kernel_args(sizes, num_stages, orders_b, tables, device) -> tuple:
@@ -174,13 +183,15 @@ def _outcome_batch(dev, n_orders: int, k_total: int, n: int) -> int:
 
 def _outcomes_eval(sizes, num_stages, orders, outcomes, weights, dev):
     orders = _check_orders(orders, len(num_stages))
-    tables = outcome_tables(outcomes, weights, num_stages, dev)
+    with profiling.span("ops.args"):
+        tables = outcome_tables(outcomes, weights, num_stages, dev)
     pb = _outcome_batch(dev, orders.shape[0], tables[1].shape[0], len(num_stages))
-    parts = [
-        K.sojourn_outcomes(*outcomes_kernel_args(sizes, num_stages, orders[lo : lo + pb],
-                                                 tables, dev))
-        for lo in range(0, orders.shape[0], pb)
-    ]
+    parts = []
+    for lo in range(0, orders.shape[0], pb):
+        with profiling.span("ops.args"):
+            args = outcomes_kernel_args(sizes, num_stages, orders[lo : lo + pb], tables, dev)
+        with profiling.span("ops.launch"):
+            parts.append(K.sojourn_outcomes(*args))
     e_succ = torch.cat([p[0] for p in parts]).cpu().numpy()
     e_all = torch.cat([p[1] for p in parts]).cpu().numpy()
     return e_succ, e_all
@@ -200,10 +211,13 @@ def _sojourn_eval(sizes, probs, num_stages, orders, samples, dev):
         launch = K.sojourn_enum
     tile = min(XLA_TILE, max(BLOCK_COMBOS, 1 << (count - 1).bit_length()))
     pb = _order_batch(orders.shape[0], tile, n)
-    parts = [
-        launch(*static_kernel_args(sizes, probs, num_stages, orders[lo : lo + pb], dev, samples))
-        for lo in range(0, orders.shape[0], pb)
-    ]
+    parts = []
+    for lo in range(0, orders.shape[0], pb):
+        with profiling.span("ops.args"):
+            args = static_kernel_args(sizes, probs, num_stages, orders[lo : lo + pb], dev,
+                                      samples)
+        with profiling.span("ops.launch"):
+            parts.append(launch(*args))
     e_succ = torch.cat([p[0] for p in parts]).cpu().numpy()
     e_all = torch.cat([p[1] for p in parts]).cpu().numpy()
     return e_succ, e_all

@@ -8,12 +8,21 @@
   gauges / histograms with a JSON snapshot; both frontends populate it
   via ``metrics=`` (:func:`record_run_metrics`).
 * :mod:`repro_torch.obs.profiling` — opt-in wall-clock spans around the
-  fused ``sojourn_eval`` ops and the workload-cache tiers, surfaced in
-  the same registry snapshot.
+  evaluator's plan, the fused ``sojourn_eval`` ops (their kernel
+  arguments and launches) and the workload-cache tiers, surfaced in the
+  same registry snapshot and, as profiler ranges, on the
+  ``torch.profiler`` timeline.
 
 ``python -m repro_torch.obs.report`` replays a synthetic Philly-trace
 workload and writes the trace + metrics artifacts.
+
+The recorder's names load on first use: :mod:`~repro_torch.obs.recorder`
+imports :mod:`repro_torch.core`, whose evaluator imports the ops, which
+import :mod:`~repro_torch.obs.profiling`; loading it here would make
+importing the ops first a circular import.
 """
+
+import importlib
 
 from repro_torch.obs.metrics import (  # noqa: F401
     MetricsRegistry,
@@ -21,4 +30,11 @@ from repro_torch.obs.metrics import (  # noqa: F401
     get_registry,
     record_run_metrics,
 )
-from repro_torch.obs.recorder import TraceRecorder, validate_chrome_trace  # noqa: F401
+
+_RECORDER = ("TraceRecorder", "validate_chrome_trace")
+
+
+def __getattr__(name: str):
+    if name in _RECORDER:
+        return getattr(importlib.import_module("repro_torch.obs.recorder"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

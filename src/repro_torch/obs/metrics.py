@@ -18,8 +18,6 @@ snapshot is JSON-serializable.
 from __future__ import annotations
 
 import json
-import time
-from contextlib import contextmanager
 
 import numpy as np
 
@@ -141,15 +139,6 @@ class MetricsRegistry:
 
     def histogram(self, name: str) -> Histogram:
         return self._get(name, Histogram)
-
-    @contextmanager
-    def timer(self, name: str):
-        """Time a block into ``<name>.seconds`` (histogram)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.histogram(f"{name}.seconds").observe(time.perf_counter() - t0)
 
     def clear(self) -> None:
         self._metrics.clear()

@@ -1,38 +1,48 @@
-"""Opt-in wall-clock profiling spans for kernels and cache tiers.
+"""Opt-in wall-clock profiling spans for the evaluator's host path, the
+ops and the cache tiers.
 
 Disabled by default: every probe is guarded by one module-level bool,
-so the instrumented hot paths (the fused ``sojourn_eval`` ops, the
-workload-cache tiers in :mod:`repro_torch.core.policies`) pay a single
-attribute check when profiling is off.  Enable with
+so the instrumented hot paths (the evaluator's plan, the fused
+``sojourn_eval`` ops, the workload-cache tiers in
+:mod:`repro_torch.core.policies`) pay a single attribute check when
+profiling is off: no clock read and no profiler range.  Enable with
 :func:`enable` or the ``REPRO_PROFILE=1`` environment variable.
 
 Spans record into the process-wide default
 :class:`~repro_torch.obs.metrics.MetricsRegistry` as
 ``prof.<name>.seconds`` histograms plus ``prof.<name>.calls``
 counters, so anything that snapshots the registry surfaces kernel
-latency next to cache hit/miss/eviction latency in one place.
+latency next to cache hit/miss/eviction latency in one place.  A span
+also opens a profiler range of its name (a ``RecordFunction``, as
+``torch.profiler.record_function`` opens), so under ``torch.profiler``
+it lands on the trace's host timeline beside the aten operations, the
+CUDA kernels and the copies, on one clock.  The range is of function
+scope, not user scope: a user-scope range would also get a range on the
+card, from its first kernel to its last, which a reader of the trace
+would count as device time.  :func:`count_bytes` adds to a
+``prof.<name>`` counter.  :func:`tick` / :func:`tock` are probes on
+paths taken once a cache access; they reach the registry only.
 
-For CUDA work use :func:`block` inside a span to charge asynchronous
-launches to the span that started them (``torch.cuda.synchronize``);
-the ``sojourn_eval`` ops copy their results to numpy inside their
-spans, which waits for the card implicitly.
+The ``sojourn_eval`` ops copy their results to NumPy inside their spans,
+which waits for the card, so an op's span holds its device time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from contextlib import contextmanager
 
-import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from repro_torch.obs import metrics
 
-__all__ = ["enabled", "enable", "span", "block", "tick", "tock"]
+__all__ = ["enabled", "enable", "span", "count_bytes", "tick", "tock"]
 
 _ENABLED = os.environ.get("REPRO_PROFILE", "").strip().lower() not in (
     "", "0", "false", "off",
 )
+_OFF = contextlib.nullcontext()
 
 
 def enabled() -> bool:
@@ -45,30 +55,37 @@ def enable(on: bool = True) -> None:
     _ENABLED = bool(on)
 
 
-@contextmanager
+class _Span:
+    __slots__ = ("name", "registry", "range", "t0")
+
+    def __init__(self, name: str, registry: metrics.MetricsRegistry):
+        self.name, self.registry = name, registry
+
+    def __enter__(self):
+        self.range = _RecordFunctionFast(self.name)
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        self.registry.histogram(f"prof.{self.name}.seconds").observe(seconds)
+        self.registry.counter(f"prof.{self.name}.calls").inc()
+
+
 def span(name: str, registry: metrics.MetricsRegistry | None = None):
-    """Time a block into ``prof.<name>.seconds`` when profiling is on."""
+    """Time a block into ``prof.<name>.seconds``, under a profiler range
+    named ``name``, when profiling is on; a shared no-op otherwise."""
     if not _ENABLED:
-        yield
-        return
-    reg = registry or metrics.get_registry()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        reg.histogram(f"prof.{name}.seconds").observe(time.perf_counter() - t0)
-        reg.counter(f"prof.{name}.calls").inc()
+        return _OFF
+    return _Span(name, registry or metrics.get_registry())
 
 
-def block(x):
-    """``torch.cuda.synchronize`` under profiling; identity otherwise.
-
-    Wrap a span's result so device-async work is charged to the span
-    that launched it instead of the first later host sync.
-    """
-    if _ENABLED and torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return x
+def count_bytes(name: str, tensors) -> None:
+    """Add the bytes of ``tensors`` to the counter ``prof.<name>`` when
+    profiling is on."""
+    if _ENABLED:
+        metrics.get_registry().counter(f"prof.{name}").inc(sum(t.nbytes for t in tensors))
 
 
 def tick() -> float:
