@@ -18,7 +18,10 @@ completion times are Eqs. (7)-(9).
   mask words and ``REGISTER_SERVERS`` servers in registers, past either
   in shared memory and, past ``SHARED_STATE_BYTES`` a block, in device
   scratch that the wrapper allocates, so the job count is limited by
-  memory only, as the reference's is.
+  memory only, as the reference's is.  With
+  :mod:`repro_torch.obs.profiling` on, each launch adds the N M entries of
+  its tables to the counter ``prof.ops.dynamic_entries``: they set the
+  mask words, and so the register path against the memory path.
 * ``dynamic_sojourn_enum_torch`` / ``dynamic_sojourn_mc_torch`` — the
   plain versions: the identical state machine with the job axis
   vectorized (:func:`_sim_tile_torch`, the counterpart of
@@ -348,6 +351,7 @@ def dynamic_sojourn_enum(
         scratch_per_thread=_scratch_per_thread(n, m, n_servers),
     )
     launches["dynamic_sojourn_enum"] += 1
+    profiling.count("ops.dynamic_entries", n * m)
     return out
 
 
@@ -382,6 +386,7 @@ def dynamic_sojourn_mc(
         scratch_per_thread=_scratch_per_thread(n, m, n_servers),
     )
     launches["dynamic_sojourn_mc"] += 1
+    profiling.count("ops.dynamic_entries", n * m)
     return out
 
 

@@ -11,7 +11,9 @@ tensors on the inputs' device.
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a
 CPU tensor runs the plain PyTorch version (``*_torch``), which tiles the
 index range as the ``lax.scan`` paths of the JAX package do.
-``launches`` counts kernel launches and nothing else.
+``launches`` counts kernel launches and nothing else; with
+:mod:`repro_torch.obs.profiling` on, each ``sojourn_enum`` launch also adds
+its suffix length L to the counter ``prof.ops.enum_suffix``.
 
 The enumeration kernel walks each order's combinations in service order:
 a thread decodes one prefix (the first N - L positions) and walks the
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.sojourn_eval import rng
+from repro_torch.obs import profiling
 
 __all__ = [
     "THREADS",
@@ -293,6 +296,7 @@ def sojourn_enum(
          p_orders, n, m, k_total, suffix),
     )
     launches["sojourn_enum"] += 1
+    profiling.count("ops.enum_suffix", suffix)
     return out
 
 

@@ -19,8 +19,8 @@ it lands on the trace's host timeline beside the aten operations, the
 CUDA kernels and the copies, on one clock.  The range is of function
 scope, not user scope: a user-scope range would also get a range on the
 card, from its first kernel to its last, which a reader of the trace
-would count as device time.  :func:`count_bytes` adds to a
-``prof.<name>`` counter.  :func:`tick` / :func:`tock` are probes on
+would count as device time.  :func:`count_bytes` and :func:`count` add
+to a ``prof.<name>`` counter.  :func:`tick` / :func:`tock` are probes on
 paths taken once a cache access; they reach the registry only.
 
 The ``sojourn_eval`` ops copy their results to NumPy inside their spans,
@@ -37,7 +37,7 @@ from torch._C._profiler import _RecordFunctionFast
 
 from repro_torch.obs import metrics
 
-__all__ = ["enabled", "enable", "span", "count_bytes", "tick", "tock"]
+__all__ = ["enabled", "enable", "span", "count", "count_bytes", "tick", "tock"]
 
 _ENABLED = os.environ.get("REPRO_PROFILE", "").strip().lower() not in (
     "", "0", "false", "off",
@@ -79,6 +79,12 @@ def span(name: str, registry: metrics.MetricsRegistry | None = None):
     if not _ENABLED:
         return _OFF
     return _Span(name, registry or metrics.get_registry())
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``prof.<name>`` when profiling is on."""
+    if _ENABLED:
+        metrics.get_registry().counter(f"prof.{name}").inc(n)
 
 
 def count_bytes(name: str, tensors) -> None:

@@ -4,8 +4,9 @@ With profiling on, one ``evaluate_many`` records the plan spans of the
 entry layer, the op spans with their ``ops.args`` and ``ops.launch``
 spans inside, the cache-key probe and the bytes of the kernel inputs, and
 each span is a profiler range on the ``torch.profiler`` timeline: plan and
-op spans side by side, the ``ops.*`` spans inside the op spans.  With
-profiling off nothing is recorded and no range is opened.  All on the CPU.
+op spans side by side, the ``ops.*`` spans inside the op spans.  The kernel
+wrappers count the regime their shapes put a launch in.  With profiling off
+nothing is recorded and no range is opened.  All on the CPU.
 """
 
 import os
@@ -20,6 +21,7 @@ import torch
 from repro_torch.core import evaluator as ev
 from repro_torch.core import policies
 from repro_torch.core.jobs import JobSpec
+from repro_torch.kernels.sojourn_eval import dynamic, kernel
 from repro_torch.obs import metrics, profiling
 
 REPO = Path(__file__).resolve().parents[1]
@@ -132,6 +134,51 @@ def test_nothing_is_recorded_with_profiling_off(registry):
                                               device="cpu"))
     assert registry.snapshot() == {"counters": {}, "gauges": {}, "histograms": {}}
     assert _ranges(prof) == []
+
+
+def _launch_each_wrapper(monkeypatch, n, m):
+    """One launch of ``sojourn_enum``, ``dynamic_sojourn_enum`` and
+    ``dynamic_sojourn_mc`` for one order or table of ``n`` jobs of ``m``
+    stages (K = m**n), down to the kernel's call: the tensors are on the
+    meta device, which takes the wrappers' launch path but holds no data,
+    and the library call is left out."""
+    dev = torch.device("meta")
+    monkeypatch.setattr(kernel, "launches", dict(kernel.launches))
+    monkeypatch.setattr(dynamic, "launches", dict(dynamic.launches))
+
+    def launch(stem, signatures, entry, device, n_orders, *args, **kw):
+        return (torch.empty(n_orders, dtype=torch.float64, device=dev),) * 2
+
+    monkeypatch.setattr(kernel, "launch", launch)
+
+    def t(dtype, *shape):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    f64, i32 = torch.float64, torch.int32
+    kernel.sojourn_enum(t(f64, 1, n, m), t(f64, 1, n, m), t(i32, 1, n), t(i32, 1, n), m**n)
+    dynamic.dynamic_sojourn_enum(t(f64, n, m), t(f64, n, m), t(f64, 1, n, m), t(i32, n),
+                                 t(i32, n), m**n, n * m)
+    dynamic.dynamic_sojourn_mc(t(f64, n, m), t(f64, n, m), t(f64, 1, n, m), t(i32, n), 7,
+                               1 << 20, n * m)
+    assert kernel.launches["sojourn_enum"] == 1
+    assert dynamic.launches == {"dynamic_sojourn_enum": 1, "dynamic_sojourn_mc": 1}
+
+
+@pytest.mark.parametrize("n,m,suffix", [(26, 2, 8), (13, 4, 5)])
+def test_the_kernels_count_the_regime_of_their_shapes(registry, monkeypatch, n, m, suffix):
+    assert kernel.suffix_length(n, 1, m**n) == suffix
+    profiling.enable(True)
+    _launch_each_wrapper(monkeypatch, n, m)
+    counters = registry.snapshot()["counters"]
+    assert counters["prof.ops.enum_suffix"] == suffix
+    assert counters["prof.ops.dynamic_entries"] == 2 * n * m  # one enum, one MC launch
+
+
+def test_the_kernels_count_nothing_with_profiling_off(registry, monkeypatch):
+    profiling.enable(False)
+    _launch_each_wrapper(monkeypatch, 13, 4)
+    profiling.count("ops.enum_suffix", 5)
+    assert registry.snapshot()["counters"] == {}
 
 
 def test_the_outermost_host_events_are_the_programs_spans(registry, monkeypatch):
